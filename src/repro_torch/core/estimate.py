@@ -1,0 +1,215 @@
+"""Roofline-style candidate estimates (paper §4.2 'shortlist candidates
+with a roofline-style estimate').
+
+Port of the SpMM half of repro/core/estimate.py. Each variant is
+modelled by the branch of the `repro` family it ports
+(registry.PORTED_FROM), so ``ragged_ell_cuda`` is costed exactly like
+``ragged_ell_pallas``. Two constants of the JAX model described a Pallas
+grid on a TPU and now come from the device profile: the per-step charge
+(``HardwareSpec.step_s``, fitted from the ragged kernel's measured time
+per slot) and the slot-chain parallelism (``HardwareSpec.p_eff``, the SM
+count on a GPU). The estimate only has to *rank* candidates well enough
+that the true winner lands in the probed top-k; the guardrail absorbs
+estimate error.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Iterable
+
+from repro_torch.core.features import (
+    HardwareSpec,
+    InputFeatures,
+    op_dynamic_vals,
+    op_kind,
+)
+from repro_torch.core.registry import PORTED_FROM
+from repro_torch.kernels.spmm import f_tile as cuda_f_tile
+
+BYTES_F32 = 4
+
+
+def estimates_for(
+    feat: InputFeatures, hw: HardwareSpec, variants: Iterable
+) -> Dict[str, float]:
+    """Roofline estimate (ms) per variant full name, on ``hw``; the one
+    place estimates are derived."""
+    return {
+        v.full_name(): estimate(feat, hw, v.name, v.knobs) * 1e3
+        for v in variants
+    }
+
+
+def _roofline(bytes_moved: float, flops: float, hw: HardwareSpec) -> float:
+    return max(bytes_moved / hw.hbm_bw, flops / hw.peak_flops)
+
+
+def _block_ell_elems(
+    feat: InputFeatures, knobs: Dict, ragged: bool, variant: str = ""
+) -> float:
+    """Estimated padded *elements* a block-ELL kernel touches:
+    n_row_blocks x W x rb x bc for dense-W, the actual slot mass for
+    ragged, modelled at the canonical rb=bc=8 blocking. Features without
+    degree data fall back to a ``padding_waste`` knob, then the feature's
+    measured waste, then a counted nnz-multiplier guess."""
+    if feat.ell_width_est > 0:
+        tiles8 = feat.ragged_tiles_est() if ragged else feat.dense_tiles_est()
+        elems = tiles8 * 64.0
+    elif "padding_waste" in knobs:
+        elems = feat.nnz * knobs["padding_waste"]
+        if ragged:
+            elems /= 4.0
+    elif feat.padding_waste > 0.0:
+        frac = min(feat.padding_waste, 0.98)
+        elems = feat.nnz if ragged else feat.nnz / (1.0 - frac)
+    else:
+        from repro_torch.core import obs
+
+        obs.REGISTRY.inc(
+            "autosage_estimate_magic_fallback_total",
+            op=feat.op,
+            variant=variant or "?",
+        )
+        elems = feat.nnz * 8.0
+        if ragged:
+            elems /= 4.0
+    return max(elems, 64.0)
+
+
+def _block_ell_steps(elems: float, knobs: Dict) -> float:
+    """Kernel steps = padded elements / tile size."""
+    return elems / (knobs.get("rb", 8) * knobs.get("bc", 8))
+
+
+def _row_serial_penalty(
+    feat: InputFeatures, hw: HardwareSpec, knobs: Dict, weight: float = 1.0
+) -> float:
+    """Serialization tax of row-partitioned families under degree skew:
+    the heaviest row's slot chain (deg_max/bc slots) runs in ONE block;
+    whatever exceeds the fair share nnz/p_eff is critical-path extension,
+    charged at the per-slot step time. Merge-path never pays it."""
+    if feat.balance() < 8.0:
+        return 0.0
+    rb = knobs.get("rb", 8)
+    bc = knobs.get("bc", 8)
+    max_chain = feat.deg_max / bc
+    fair = feat.nnz / hw.p_eff / (rb * bc)
+    excess = max(0.0, max_chain - fair)
+    step_t = 2.0 * rb * bc * feat.f / hw.peak_flops + hw.step_s
+    return weight * excess * step_t
+
+
+def _hub_row_frac(feat: InputFeatures, hub_t: float) -> float:
+    """Fraction of rows whose degree exceeds ``hub_t``, by log-degree
+    interpolation between the stored quantile anchors (p50, 0.50),
+    (p90, 0.10), (p99, 0.01), (max, 0.0)."""
+    anchors = (
+        (max(feat.deg_p50, 1.0), 0.50),
+        (max(feat.deg_p90, 1.0), 0.10),
+        (max(feat.deg_p99, 1.0), 0.01),
+        (max(feat.deg_max, 1.0), 0.0),
+    )
+    t = max(float(hub_t), 1.0)
+    if t < anchors[0][0]:
+        return 0.5
+    for (d0, f0), (d1, f1) in zip(anchors, anchors[1:]):
+        if d0 <= t < d1:
+            w = (math.log(t) - math.log(d0)) / (math.log(d1) - math.log(d0))
+            return f0 + (f1 - f0) * w
+        if d0 == d1 == t:
+            return min(f0, f1)
+    return 0.0
+
+
+def _hub_light_width(feat: InputFeatures, frac: float) -> float:
+    """ELL width of the light partition: the largest degree quantile still
+    below the hub cut."""
+    if frac <= 0.01:
+        return feat.deg_p99
+    if frac <= 0.10:
+        return feat.deg_p90
+    return feat.deg_p50
+
+
+def _f_tile(variant: str, knobs: Dict, f: int) -> int:
+    """Feature tile of one kernel step: the Pallas knob, or the CUDA
+    kernel's block width."""
+    if variant.endswith("_cuda"):
+        return cuda_f_tile(f)
+    return knobs.get("f_tile", 128)
+
+
+def estimate_spmm(feat: InputFeatures, hw: HardwareSpec, variant: str,
+                  knobs: Dict) -> float:
+    family = PORTED_FROM.get(variant, variant)
+    n, f, nnz = feat.n_rows, feat.f, feat.nnz
+    out_bytes = n * f * BYTES_F32
+    if family == "gather_segsum":
+        bytes_moved = nnz * (f * BYTES_F32 + 8) + out_bytes * 2.0
+        flops = 2.0 * nnz * f
+    elif family == "dense":
+        bytes_moved = (feat.n_rows * feat.n_cols + feat.n_cols * f) * BYTES_F32 + out_bytes
+        flops = 2.0 * feat.n_rows * feat.n_cols * f
+    elif family == "row_ell":
+        padded = n * max(feat.deg_max, 1.0)
+        bytes_moved = padded * (f * BYTES_F32 + 8) + out_bytes
+        flops = 2.0 * padded * f
+        return _roofline(bytes_moved, flops, hw) + _row_serial_penalty(
+            feat, hw, knobs
+        )
+    elif family == "hub_split_ell":
+        hub_t = knobs.get("hub_threshold", feat.hub_threshold())
+        frac = _hub_row_frac(feat, hub_t)
+        light_pad = (feat.n_rows * (1.0 - frac)) * min(
+            _hub_light_width(feat, frac), hub_t
+        )
+        hub_pad = (feat.n_rows * frac + 1) * feat.deg_max
+        padded = light_pad + hub_pad
+        bytes_moved = padded * (f * BYTES_F32 + 8) + out_bytes * 1.2
+        flops = 2.0 * padded * f
+        return _roofline(bytes_moved, flops, hw) + _row_serial_penalty(
+            feat, hw, knobs, weight=0.5
+        )
+    elif family in ("block_ell_pallas", "ragged_ell_pallas", "hub_ragged_pallas"):
+        ragged = family != "block_ell_pallas"
+        bc = knobs.get("bc", 8)
+        eff = _block_ell_elems(feat, knobs, ragged, variant)
+        bytes_moved = eff * (f * BYTES_F32 / bc + BYTES_F32) + out_bytes
+        if family == "hub_ragged_pallas":
+            bytes_moved += out_bytes * 0.4  # two partitions + row scatter
+        flops = 2.0 * eff * f
+        n_steps = _block_ell_steps(eff, knobs) * max(f / _f_tile(variant, knobs, f), 1.0)
+        penalty = _row_serial_penalty(
+            feat, hw, knobs,
+            weight=0.5 if family == "hub_ragged_pallas" else 1.0,
+        )
+        return _roofline(bytes_moved, flops, hw) + n_steps * hw.step_s + penalty
+    elif family == "merge_path_pallas":
+        # same slot mass as ragged plus per-tile bookkeeping, and no
+        # _row_serial_penalty: the nnz split removes exactly that term
+        bc = knobs.get("bc", 8)
+        tile_slots = knobs.get("tile_slots", 8)
+        eff = _block_ell_elems(feat, knobs, True, variant)
+        bytes_moved = eff * (f * BYTES_F32 / bc + BYTES_F32) + out_bytes
+        bytes_moved += feat.n_cols * f * BYTES_F32
+        flops = 2.0 * eff * f
+        slot_steps = _block_ell_steps(eff, knobs) * max(
+            f / _f_tile(variant, knobs, f), 1.0
+        )
+        tile_steps = slot_steps / max(tile_slots, 1)
+        return _roofline(bytes_moved, flops, hw) + (slot_steps + tile_steps) * hw.step_s
+    else:
+        raise KeyError(variant)
+    return _roofline(bytes_moved, flops, hw)
+
+
+def estimate(feat: InputFeatures, hw: HardwareSpec, variant: str,
+             knobs: Dict) -> float:
+    """Seconds for ``variant`` on ``feat``. Only SpMM is ported; other op
+    kinds raise KeyError (estimate.py's "unknown variant" signal)."""
+    if op_kind(feat.op) != "spmm":
+        raise KeyError(feat.op)
+    t = estimate_spmm(feat, hw, variant, knobs)
+    if op_dynamic_vals(feat.op):
+        t += feat.nnz * (BYTES_F32 + 8) / hw.hbm_bw
+    return t

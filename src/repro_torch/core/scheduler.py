@@ -1,0 +1,339 @@
+"""AutoSAGE scheduler: estimate -> micro-probe -> guardrail -> cache.
+
+Port of repro/core/scheduler.py for SpMM: the paper's §4.2 decision
+procedure (`autosage_decide`) with the persistent cache fast path,
+slope probing on induced subgraphs with identical sampling per candidate, the top-k
+shortlist by roofline estimate and the non-regression guardrail
+(Prop. 1).
+
+The JAX package's estimate-space transfer from a peer device class's
+entry (core/transfer.py) needs a fleet of device classes; it joins the
+port with the fleet slice. Entries still carry the schema-v6 neutral
+part (features and probed ranking), so peers can read them.
+
+The JAX package wraps decide and the runners in a fallback chain
+(core/resilience.py: chosen variant -> baseline -> oracle). The port has
+none yet, by design: on this path a fallback would hide a failing
+kernel. `decide` lets faults raise and `build_runner` returns the raw
+runner — the JAX package's behaviour under AUTOSAGE_RESILIENCE=0. The
+chain joins the port with the fleet slice (ROADMAP.md Queue 1 item 8).
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import estimate as est
+from repro_torch.core import features as features_mod
+from repro_torch.core import obs
+from repro_torch.core import probe as probe_mod
+from repro_torch.core import registry
+from repro_torch.core import telemetry
+from repro_torch.core import transfer as transfer_mod
+from repro_torch.core.cache import ScheduleCache
+from repro_torch.core.features import (
+    HardwareSpec,
+    InputFeatures,
+    device_sig,
+    resolve_device,
+    waste_bin,
+)
+from repro_torch.core.guardrail import GuardrailDecision, apply_guardrail
+from repro_torch.sparse.csr import CSR, graph_signature
+
+
+@dataclasses.dataclass
+class ProbeOutcome:
+    """Result of one slope-probe pass over a candidate shortlist."""
+
+    probe_ms: Dict[str, float]  # candidate full-name -> effective cost
+    best_name: Optional[str]
+    t_best_ms: float
+    t_baseline_ms: float
+    overhead_ms: float  # wall time incl. prepare + warm-up
+    iter_ms: float  # steady-state probe iterations only
+
+
+def default_probe_args(
+    op: str, f: int, device: torch.device, seed: int = 0
+) -> Callable[[CSR], tuple]:
+    """Random dense operands of width f on ``device``, per subgraph."""
+    if features_mod.op_kind(op) != "spmm" or features_mod.op_dynamic_vals(op):
+        raise NotImplementedError(f"op {op!r} is not ported to repro_torch yet")
+
+    def fn(sub: CSR) -> tuple:
+        # per-subgraph stream: the 1x and 2x probe subgraphs must not get
+        # byte-identical operands (a warm cache would bias the slope)
+        rng = np.random.default_rng((seed, sub.n_rows, sub.nnz))
+        b = rng.standard_normal((sub.n_cols, f)).astype(np.float32)
+        return (torch.from_numpy(b).to(device),)
+
+    return fn
+
+
+@dataclasses.dataclass
+class Decision:
+    op: str
+    choice: str  # "baseline" or variant full-name
+    variant: registry.Variant  # the variant to run (baseline if fallback)
+    guardrail: Optional[GuardrailDecision]
+    from_cache: bool
+    probe_ms: Dict[str, float]  # candidate -> median ms (empty if cached)
+    probe_overhead_ms: float
+    probe_iter_ms: float
+    estimates_ms: Dict[str, float]
+
+    def to_cache_entry(self) -> Dict[str, Any]:
+        return {
+            "choice": self.choice,
+            "probe_ms": self.probe_ms,
+            "estimates_ms": self.estimates_ms,
+        }
+
+
+def entry_with_stats(
+    decision: Decision,
+    feat: InputFeatures,
+    base_full_name: Optional[str] = None,
+) -> Dict[str, Any]:
+    """Cache entry + running stats + the device-neutral part (input
+    features and the probed ranking), laid out as the JAX package writes
+    it."""
+    entry = decision.to_cache_entry()
+    probed = bool(decision.probe_ms)
+    entry["probed"] = probed
+    entry["neutral"] = {
+        "features": feat.to_neutral(),
+        "ranking": transfer_mod.build_ranking(
+            decision.probe_ms, decision.estimates_ms,
+            base_full_name or "baseline",
+        ),
+        "op": decision.op,
+        "f": feat.f,
+        "waste_bin": waste_bin(feat.padding_waste),
+    }
+    entry["stats"] = {
+        "probe_est_ms": decision.probe_ms.get(decision.choice),
+        "waste_at_probe": feat.padding_waste,
+        "probed_at": time.time() if probed else 0.0,
+        "probes": 1 if probed else 0,
+    }
+    return entry
+
+
+class AutoSage:
+    """Holds the cache, the device and its roofline profile.
+
+    ``device=None`` means CUDA; without a card that raises unless the
+    caller passes ``device="cpu"``."""
+
+    def __init__(
+        self,
+        alpha: Optional[float] = None,
+        top_k: Optional[int] = None,
+        cache: Optional[ScheduleCache] = None,
+        hw: Optional[HardwareSpec] = None,
+        probe_frac: Optional[float] = None,
+        probe_iters: Optional[int] = None,
+        probe_cap_ms: Optional[float] = None,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        self.alpha = float(os.environ.get("AUTOSAGE_ALPHA", 0.95)) if alpha is None else alpha
+        self.top_k = int(os.environ.get("AUTOSAGE_TOPK", 3)) if top_k is None else top_k
+        self.cache = cache if cache is not None else ScheduleCache()
+        self.hw = hw or HardwareSpec.current(self.device)
+        self.probe_frac = probe_frac if probe_frac is not None else probe_mod.DEFAULT_FRAC
+        self.probe_iters = probe_iters if probe_iters is not None else probe_mod.DEFAULT_ITERS
+        self.probe_cap_ms = probe_cap_ms if probe_cap_ms is not None else probe_mod.DEFAULT_CAP_MS
+        # built-runner memo, LRU-bounded: prepare() is O(nnz) host work
+        # plus an upload, paid once per (graph, op, choice)
+        self._runners: Dict[tuple, Callable] = {}
+        self._runner_cap = int(os.environ.get("AUTOSAGE_RUNNER_CACHE", "64"))
+
+    # ------------------------------------------------------------------
+    def probe_candidates(
+        self,
+        csr: CSR,
+        base: registry.Variant,
+        shortlist: List[registry.Variant],
+        args_fn: Callable[[CSR], tuple],
+        seed: int = 0,
+    ) -> ProbeOutcome:
+        """Slope-mode micro-probe of baseline + shortlist (paper §4.2):
+        every candidate is timed on TWO induced subgraphs (1x and 2x
+        rows) with identical sampling, and the cost slope between them,
+        extrapolated to the full graph, cancels fixed launch overhead.
+        AUTOSAGE_PROBE_MODE=point restores the paper's single point."""
+        mode = os.environ.get("AUTOSAGE_PROBE_MODE", "slope")
+        t_probe0 = time.perf_counter()
+        sub1 = probe_mod.induced_subgraph(csr, frac=self.probe_frac, seed=seed)
+        subs = [sub1]
+        if mode == "slope" and sub1.n_rows * 2 <= csr.n_rows:
+            subs.append(
+                probe_mod.induced_subgraph(csr, seed=seed, n_rows=sub1.n_rows * 2)
+            )
+        args_per_sub = [args_fn(s) for s in subs]
+        iter_ms_total = [0.0]
+
+        def _time(v: registry.Variant) -> float:
+            times = []
+            for sub, args in zip(subs, args_per_sub):
+                run = v.build(v.timed_prepare(sub), self.device)
+                res = probe_mod.time_callable(
+                    lambda: run(*args), self.device, iters=self.probe_iters,
+                    cap_ms=self.probe_cap_ms, name=v.full_name(),
+                )
+                iter_ms_total[0] += sum(res.times_ms)
+                times.append(res.median_ms)
+            if len(times) == 2:
+                slope = (times[1] - times[0]) / max(subs[1].n_rows - subs[0].n_rows, 1)
+                if slope > 0:
+                    return slope * csr.n_rows  # extrapolated marginal cost
+            return times[-1]
+
+        probe_ms: Dict[str, float] = {"baseline": _time(base)}
+        best_name, t_star = None, float("inf")
+        for v in shortlist:
+            t = _time(v)
+            probe_ms[v.full_name()] = t
+            if t < t_star:
+                best_name, t_star = v.full_name(), t
+        return ProbeOutcome(
+            probe_ms=probe_ms,
+            best_name=best_name,
+            t_best_ms=t_star,
+            t_baseline_ms=probe_ms["baseline"],
+            overhead_ms=(time.perf_counter() - t_probe0) * 1e3,
+            iter_ms=iter_ms_total[0],
+        )
+
+    def shortlist(
+        self, feat: InputFeatures, cands: List[registry.Variant]
+    ) -> tuple:
+        """Estimate stage: (estimates_ms, top-k non-baseline candidates)."""
+        with obs.span("estimate", op=feat.op, n_candidates=len(cands)):
+            estimates = est.estimates_for(feat, self.hw, cands)
+        with obs.span("shortlist", op=feat.op, top_k=self.top_k):
+            short = sorted(
+                (v for v in cands if not v.is_baseline),
+                key=lambda v: estimates[v.full_name()],
+            )[: self.top_k]
+        return estimates, short
+
+    # ------------------------------------------------------------------
+    def decide(
+        self,
+        csr: CSR,
+        f: int,
+        op: str,
+        probe_args_fn: Optional[Callable[[CSR], tuple]] = None,
+        seed: int = 0,
+    ) -> Decision:
+        """The paper's `autosage_decide(features, F, op)`."""
+        t0 = time.perf_counter()
+        with obs.span("decide", op=op, f=f, scheduler="exact"):
+            decision, tier = self._decide_impl(
+                csr, f, op, probe_args_fn=probe_args_fn, seed=seed,
+            )
+        obs.REGISTRY.inc("autosage_decides_total", op=op, tier=tier, scheduler="exact")
+        obs.REGISTRY.observe(
+            "autosage_decide_ms", (time.perf_counter() - t0) * 1e3,
+            op=op, scheduler="exact",
+        )
+        return decision
+
+    def _decide_impl(
+        self,
+        csr: CSR,
+        f: int,
+        op: str,
+        probe_args_fn: Optional[Callable[[CSR], tuple]] = None,
+        seed: int = 0,
+    ) -> tuple:
+        """decide() body; returns (Decision, tier) with tier one of
+        "cache" | "probe"."""
+        with obs.span("features", op=op):
+            feat = InputFeatures.from_csr(csr, f, op)
+        key = ScheduleCache.key(device_sig(self.device), feat.graph_sig, f, op, self.alpha)
+
+        cands = registry.candidates(feat, self.hw, self.device)
+        base = registry.baseline(feat, self.hw, self.device)
+        by_name = {v.full_name(): v for v in cands}
+        by_name["baseline"] = base
+
+        cached = self.cache.get(key) if self.cache is not None else None
+        if cached is not None:
+            choice = cached["choice"]
+            variant = by_name.get(choice)
+            if variant is None:
+                raise KeyError(
+                    f"cached choice {choice!r} for {key} is not a candidate here"
+                )
+            decision = Decision(
+                op=op, choice=choice, variant=variant, guardrail=None,
+                from_cache=True, probe_ms={}, probe_overhead_ms=0.0,
+                probe_iter_ms=0.0, estimates_ms={},
+            )
+            telemetry.emit_decide_event(decision, self.device, feat)
+            return decision, "cache"
+
+        estimates, short = self.shortlist(feat, cands)
+        if short:
+            with obs.span("probe", op=op, n_candidates=len(short) + 1):
+                outcome = self.probe_candidates(
+                    csr, base, short,
+                    probe_args_fn or default_probe_args(op, f, self.device, seed),
+                    seed=seed,
+                )
+            obs.REGISTRY.inc("autosage_probe_passes_total", op=op)
+            obs.REGISTRY.observe("autosage_probe_ms", outcome.overhead_ms, op=op)
+            obs.record_probe_estimates(op, outcome.probe_ms, estimates, base.full_name())
+        else:
+            # no challengers: the decision can only be baseline
+            outcome = ProbeOutcome({}, None, float("inf"), 0.0, 0.0, 0.0)
+
+        with obs.span("guardrail", op=op):
+            gr = apply_guardrail(
+                outcome.best_name, outcome.t_best_ms, outcome.t_baseline_ms,
+                self.alpha,
+            )
+        variant = by_name[gr.choice] if gr.accepted else base
+        decision = Decision(
+            op=op, choice=gr.choice, variant=variant, guardrail=gr,
+            from_cache=False, probe_ms=outcome.probe_ms,
+            probe_overhead_ms=outcome.overhead_ms,
+            probe_iter_ms=outcome.iter_ms, estimates_ms=estimates,
+        )
+        if self.cache is not None:
+            self.cache.put(key, entry_with_stats(decision, feat, base.full_name()))
+        telemetry.emit_decide_event(decision, self.device, feat)
+        return decision, "probe"
+
+    # ------------------------------------------------------------------
+    def build_runner(self, csr: CSR, decision: Decision) -> Callable:
+        """Prepare the chosen variant on the FULL graph, upload it to the
+        device and return its runner (memoized per graph/op/choice)."""
+        key = (graph_signature(csr), decision.op, decision.choice)
+        runner = self._runners.pop(key, None)
+        if runner is None:
+            with obs.span("prepare", op=decision.op, choice=decision.choice):
+                aux = decision.variant.timed_prepare(csr)
+                runner = decision.variant.build(aux, self.device)
+            padding = {
+                k: float(v) for k, v in aux.items() if k.endswith("padding_frac")
+            }
+            if padding:
+                telemetry.emit_decide_event(
+                    decision, self.device, padding=padding, graph_sig=key[0],
+                    kind="prepare",
+                )
+            while len(self._runners) >= max(self._runner_cap, 1):
+                self._runners.pop(next(iter(self._runners)))
+        self._runners[key] = runner  # (re)insert at MRU position
+        return runner

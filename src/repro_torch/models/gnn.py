@@ -1,0 +1,98 @@
+"""The paper's own workload: GraphSAGE over CSR graphs, with
+AutoSAGE-scheduled sparse aggregation.
+
+Port of the SAGE part of repro/models/gnn.py (``init_gnn``, ``_norm_csr``,
+``sage_forward``):
+
+    GraphSAGE (mean aggregator): H' = act(A_norm @ H @ W_agg + H @ W_self)
+
+This slice serves the forward pass (inference). With a scheduler and
+gradients enabled, `api.spmm` raises: the scheduled backward ops are
+ROADMAP.md Queue 1 item 5.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch import api
+from repro_torch.core.features import resolve_device
+from repro_torch.sparse.csr import CSR
+
+# copy of repro/configs/gnn_sage.py (paper §7): 3 layers, width 256
+SAGE_CONFIG = {"name": "gnn-sage", "n_layers": 3, "d_model": 256}
+
+
+def norm_csr(csr: CSR) -> CSR:
+    """Row-normalized adjacency (mean aggregator)."""
+    deg = np.maximum(csr.degrees, 1).astype(np.float32)
+    val = csr.values_or_ones(np.float32) / np.repeat(deg, csr.degrees)
+    return CSR(csr.rowptr, csr.colind, val, csr.n_rows, csr.n_cols)
+
+
+def _dims(in_dim: int, n_classes: int, d_model: int, n_layers: int) -> List[int]:
+    return [in_dim] + [d_model] * (n_layers - 1) + [n_classes]
+
+
+class SAGE(nn.Module):
+    """GraphSAGE with ``n_layers`` mean-aggregation layers. Weights are
+    drawn as in `repro.models.gnn.init_gnn` (normal, scaled by
+    1/sqrt(d_in)) from a torch.Generator seeded with ``seed``; the values
+    differ from JAX's, so parity tests carry JAX's weights over with
+    `sage_params_from_jax`."""
+
+    def __init__(
+        self,
+        in_dim: int,
+        n_classes: int,
+        d_model: int = SAGE_CONFIG["d_model"],
+        n_layers: int = SAGE_CONFIG["n_layers"],
+        *,
+        seed: int = 0,
+        device=None,
+    ):
+        super().__init__()
+        device = resolve_device(device)
+        dims = _dims(in_dim, n_classes, d_model, n_layers)
+        g = torch.Generator().manual_seed(seed)
+
+        def init(i):
+            w = torch.randn(dims[i], dims[i + 1], generator=g) * dims[i] ** -0.5
+            return nn.Parameter(w.to(device))
+
+        self.w_agg = nn.ParameterList()
+        self.w_self = nn.ParameterList()
+        for i in range(n_layers):
+            self.w_agg.append(init(i))
+            self.w_self.append(init(i))
+
+    def forward(self, csr: CSR, x: torch.Tensor, sage=None) -> torch.Tensor:
+        """Logits (n_rows, n_classes). Aggregation runs through the
+        scheduler ``sage`` when given, else the torch reference."""
+        a = norm_csr(csr)
+        n_layers = len(self.w_agg)
+        for i in range(n_layers):
+            h = x @ self.w_agg[i]
+            agg = api.spmm(a, h, sage=sage, differentiable=torch.is_grad_enabled())
+            x = agg + x @ self.w_self[i]
+            if i < n_layers - 1:
+                x = torch.relu(x)
+        return x
+
+
+def sage_params_from_jax(params_np: Dict[str, Sequence[np.ndarray]], device=None) -> SAGE:
+    """A `SAGE` holding the weights of `repro.models.gnn.init_gnn`'s
+    output, given as numpy arrays ``{"w_agg": [...], "w_self": [...]}``."""
+    w_agg, w_self = params_np["w_agg"], params_np["w_self"]
+    n_layers = len(w_agg)
+    d_model = w_agg[0].shape[1] if n_layers > 1 else SAGE_CONFIG["d_model"]
+    model = SAGE(w_agg[0].shape[0], w_agg[-1].shape[1], d_model, n_layers, device=device)
+    with torch.no_grad():
+        for dst, src in zip([*model.w_agg, *model.w_self], [*w_agg, *w_self]):
+            if tuple(dst.shape) != tuple(src.shape):
+                raise ValueError(f"weight shape {src.shape} != {tuple(dst.shape)}")
+            dst.copy_(torch.from_numpy(np.asarray(src, np.float32)))
+    return model

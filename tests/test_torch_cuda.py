@@ -1,0 +1,85 @@
+"""repro_torch's CUDA kernels on the card, against their plain versions.
+
+These need an NVIDIA GPU with sm_90a and nvcc; without one they skip.
+Run them on such a machine with
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+
+Tolerance: |kernel - plain| <= 1e-4 * |plain| + 1e-4 * max|plain| (the
+same fp32 products summed in another order). Dense-W equals ragged bit
+for bit and merge-path is bit-equal from launch to launch."""
+import pytest
+import torch
+
+from repro_torch.kernels import spmm as ks
+from repro_torch.models.gnn import norm_csr
+from repro_torch.sparse import build_merge_path, csr_to_block_ell, hub_skew, single_hub
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (sm_90a) and nvcc")
+    return torch.device("cuda", 0)
+
+
+def _graph(kind):
+    if kind == "single_hub":
+        return norm_csr(single_hub(4096, nnz_frac=0.9, seed=1))
+    return norm_csr(hub_skew(3000, 4, 0.05, 300, seed=2))
+
+
+def _close(got, want):
+    tol = 1e-4 * want.abs() + 1e-4 * want.abs().max()
+    assert ((got - want).abs() <= tol).all()
+
+
+def _b(csr, f, device):
+    g = torch.Generator().manual_seed(f)
+    return torch.randn(csr.n_cols, f, generator=g).to(device)
+
+
+@pytest.mark.parametrize("kind", ["hub_skew", "single_hub"])
+@pytest.mark.parametrize("rb,bc", [(8, 8), (16, 8), (8, 16)])
+@pytest.mark.parametrize("f", [41, 256])
+def test_ragged_and_dense_w_kernels(cuda, kind, rb, bc, f):
+    csr = _graph(kind)
+    bell = csr_to_block_ell(csr, rb=rb, bc=bc)
+    rag = bell.to_ragged()
+    b = _b(csr, f, cuda)
+    args = [torch.from_numpy(a).to(cuda) for a in (rag.blkptr, rag.slot_colblk, rag.slot_vals)]
+    before = ks.LAUNCHES["spmm_ragged_ell"]
+    ragged = ks.spmm_ragged_ell(*args, b, n_rows=csr.n_rows)
+    assert ks.LAUNCHES["spmm_ragged_ell"] == before + 1
+    _close(ragged, ks.spmm_ragged_ell_plain(*args, b, n_rows=csr.n_rows))
+    dense = ks.spmm_block_ell(
+        torch.from_numpy(bell.colblk).to(cuda), torch.from_numpy(bell.vals).to(cuda),
+        b, n_rows=csr.n_rows,
+    )
+    assert torch.equal(dense, ragged)
+
+
+@pytest.mark.parametrize("kind", ["hub_skew", "single_hub"])
+@pytest.mark.parametrize("tile_slots", [3, 8, 16])
+def test_merge_path_kernel(cuda, kind, tile_slots):
+    csr = _graph(kind)
+    mp = build_merge_path(csr_to_block_ell(csr).to_ragged(), tile_slots=tile_slots)
+    t = [torch.from_numpy(a).to(cuda) for a in
+         (mp.blkptr, mp.slot_colblk, mp.tile_rowblk, mp.tile_offset, mp.tile_vals)]
+    b = _b(csr, 256, cuda)
+    out = ks.spmm_merge_path(*t, b, mp.n_slots, n_rows=csr.n_rows)
+    _close(out, ks.spmm_merge_path_plain(t[0], t[1], t[4], b, mp.n_slots, n_rows=csr.n_rows))
+    assert torch.equal(out, ks.spmm_merge_path(*t, b, mp.n_slots, n_rows=csr.n_rows))
+
+
+def test_wrapper_raises_instead_of_falling_back(cuda):
+    csr = _graph("hub_skew")
+    rag = csr_to_block_ell(csr).to_ragged()
+    with pytest.raises(TypeError):
+        ks.spmm_ragged_ell(
+            torch.from_numpy(rag.blkptr).to(cuda).long(),
+            torch.from_numpy(rag.slot_colblk).to(cuda),
+            torch.from_numpy(rag.slot_vals).to(cuda), _b(csr, 64, cuda),
+        )

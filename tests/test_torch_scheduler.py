@@ -1,0 +1,160 @@
+"""repro_torch's scheduler on the CPU: a twin of examples/quickstart.py
+with the hand-kernel families probed through their plain versions
+(AUTOSAGE_PROBE_PALLAS=1), the schedule cache and its replay contract,
+cache files shared with the JAX package, estimates keyed off the
+PORTED_FROM table, and the device rule."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core import estimate as jx_est
+from repro.core import registry as jx_registry
+from repro.core import transfer as jx_transfer
+from repro.core.cache import ScheduleCache as JxCache
+from repro.core.features import HardwareSpec as JxHw
+from repro.core.features import InputFeatures as JxFeat
+from repro.kernels import ref as jx_ref
+from repro.sparse import CSR as JxCSR
+from repro.sparse import graph_signature as jx_graph_signature
+from repro_torch import api
+from repro_torch.core import (
+    AutoSage,
+    HardwareSpec,
+    InputFeatures,
+    ReplayMiss,
+    ScheduleCache,
+    parse_key,
+)
+from repro_torch.core import estimate as est
+from repro_torch.core import registry
+from repro_torch.sparse import erdos_renyi, hub_skew
+
+CPU = torch.device("cpu")
+
+
+@pytest.fixture
+def probe_kernels(monkeypatch):
+    monkeypatch.setenv("AUTOSAGE_PROBE_PALLAS", "1")
+
+
+def _sage(path, **kw):
+    return AutoSage(cache=ScheduleCache(path=path, **kw), device="cpu",
+                    probe_iters=2, probe_cap_ms=200)
+
+
+@pytest.mark.parametrize("graph", ["erdos_renyi", "hub_skew"])
+def test_quickstart_twin_decides_caches_replays(tmp_path, probe_kernels, graph):
+    csr = (erdos_renyi(3000, 1.5e-3, seed=0) if graph == "erdos_renyi"
+           else hub_skew(3000, 4, 0.05, 300, seed=0))
+    path = str(tmp_path / "cache.json")
+    sage = _sage(path)
+    b = np.random.default_rng(0).standard_normal((csr.n_cols, 64)).astype(np.float32)
+    out = api.spmm(csr, torch.from_numpy(b), sage=sage, differentiable=False)
+    d = sage.decide(csr, 64, "spmm")
+    assert d.from_cache
+    first = sage.cache.get(sage.cache.keys_for_op("spmm")[0])
+    assert any("_cuda" in name for name in first["estimates_ms"])
+    assert d.choice == "baseline" or d.choice in first["probe_ms"]
+    exp = jx_ref.spmm_ref(csr.rowptr, csr.colind, None, b)
+    np.testing.assert_allclose(out.numpy(), np.asarray(exp), rtol=1e-5, atol=1e-4)
+    # replay in a fresh scheduler: the same choice, no probe
+    replay = _sage(path, replay_only=True)
+    d_r = replay.decide(csr, 64, "spmm")
+    assert d_r.from_cache and d_r.choice == d.choice
+    with pytest.raises(ReplayMiss):
+        replay.decide(csr, 48, "spmm")  # unseen key: F is part of it
+
+
+def test_pinned_kernel_families_run_through_the_cache(tmp_path, probe_kernels):
+    """Pinning a family through the cache (the replay path) runs it."""
+    csr = hub_skew(800, 4, 0.05, 120, seed=1)
+    b = torch.from_numpy(
+        np.random.default_rng(1).standard_normal((csr.n_cols, 40)).astype(np.float32))
+    exp = api.spmm(csr, b)
+    path = str(tmp_path / "cache.json")
+    sage = _sage(path)
+    sage.decide(csr, 40, "spmm")
+    key = sage.cache.keys_for_op("spmm")[0]
+    feat = InputFeatures.from_csr(csr, 40, "spmm")
+    names = [v.full_name() for v in registry.candidates(feat, sage.hw, CPU)]
+    assert {n.split("[")[0] for n in names} >= {
+        "block_ell_cuda", "ragged_ell_cuda", "merge_path_cuda", "hub_ragged_cuda"}
+    for name in names:
+        sage.cache.put(key, {"choice": name, "probe_ms": {}, "estimates_ms": {}})
+        pinned = _sage(path, replay_only=True)
+        d = pinned.decide(csr, 40, "spmm")
+        assert d.choice == name and d.variant.full_name() == name
+        out = api.spmm(csr, b, sage=pinned, differentiable=False)
+        torch.testing.assert_close(out, exp, rtol=1e-5, atol=1e-5)
+
+
+def test_cache_files_load_in_both_packages(tmp_path, probe_kernels):
+    csr = erdos_renyi(1200, 2e-3, seed=4)
+    path = str(tmp_path / "port.json")
+    sage = _sage(path)
+    d = sage.decide(csr, 32, "spmm")
+    key = sage.cache.keys_for_op("spmm")[0]
+    jx = JxCache(path=path, replay_only=False)
+    assert jx.get(key)["choice"] == d.choice
+    assert jx.get(key)["schema"] == 6
+    assert jx.get(key)["neutral"]["features"] == InputFeatures.from_csr(
+        csr, 32, "spmm").to_neutral()
+    # the reverse: a JAX-written file loads, parses and replays here
+    jpath = str(tmp_path / "jax.json")
+    jcache = JxCache(path=jpath, replay_only=False)
+    jx_csr = JxCSR(csr.rowptr, csr.colind, None, csr.n_rows, csr.n_cols)
+    jkey = JxCache.key("cpu:cpu:jax", jx_graph_signature(jx_csr), 32, "spmm", 0.95)
+    jcache.put(jkey, {"choice": "baseline", "probe_ms": {"baseline": 1.0},
+                      "estimates_ms": {}})
+    port = ScheduleCache(path=jpath, replay_only=True)
+    assert port.get(jkey)["choice"] == "baseline"
+    assert parse_key(jkey).sig == InputFeatures.from_csr(csr, 32, "spmm").graph_sig
+
+
+def _jx_feat(feat):
+    return JxFeat(**dataclasses.asdict(feat))
+
+
+def test_estimates_follow_the_ported_family():
+    """On a shared roofline profile each CUDA variant is costed exactly as
+    the repro variant of its PORTED_FROM family (F <= 128: one step per
+    slot in both)."""
+    csr = hub_skew(2000, 4, 0.05, 400, seed=2)
+    feat = InputFeatures.from_csr(csr, 64, "spmm")
+    pool = registry.candidates(feat, HardwareSpec.cpu(), CPU, include_kernels=True)
+    jx_pool = {
+        (v.name, tuple(sorted((k, x) for k, x in v.knobs.items() if k != "f_tile"))): v
+        for v in jx_registry.candidates(_jx_feat(feat), JxHw.cpu(), include_pallas=True)
+        if v.knobs.get("f_tile", 128) == 128
+    }
+    for v in pool:
+        family = registry.PORTED_FROM[v.name]
+        twin = jx_pool[(family, tuple(sorted(v.knobs.items())))]
+        mine = est.estimate(feat, HardwareSpec.cpu(), v.name, v.knobs)
+        theirs = jx_est.estimate(_jx_feat(feat), JxHw.cpu(), twin.name, twin.knobs)
+        assert mine == pytest.approx(theirs, rel=1e-12), v.full_name()
+
+
+def test_device_rule():
+    if torch.cuda.is_available():
+        pytest.skip("the rule under test is the one for machines without a card")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AutoSage(cache=ScheduleCache(path=None))
+    assert AutoSage(cache=ScheduleCache(path=None), device="cpu").device == CPU
+
+
+def test_entry_neutral_ranking_reads_as_a_jax_donor(tmp_path, probe_kernels):
+    """A probed entry written by the port carries the neutral ranking the
+    JAX package's transfer tier reads from a peer device class."""
+    csr = hub_skew(1500, 4, 0.05, 150, seed=6)
+    sage = _sage(str(tmp_path / "fleet.json"))
+    d = sage.decide(csr, 48, "spmm")
+    assert d.probe_ms
+    entry = JxCache(path=str(tmp_path / "fleet.json")).get(sage.cache.keys_for_op("spmm")[0])
+    base = registry.baseline(InputFeatures.from_csr(csr, 48, "spmm"), sage.hw, CPU)
+    want = jx_transfer.build_ranking(d.probe_ms, d.estimates_ms, base.full_name())
+    assert entry["neutral"]["ranking"] == want
+    assert jx_transfer.ranking_of(entry, base.full_name()) == want
+    assert [r["name"] for r in want][0] == min(d.probe_ms, key=d.probe_ms.get)
