@@ -10,7 +10,7 @@ order; any failure raises and the script exits non-zero:
 1. Environment: the card's name and power limit, torch/CUDA versions,
    TF32 off, and the build of every kernel source (one nvcc per source,
    started together) with its time and ptxas report.
-2. Kernels against their plain versions, at the slice's shapes
+2. SpMM kernels against their plain versions, at the SpMM slice's shapes
    (Reddit-0.25: the normalized adjacency of reddit_like(0.25, seed=0),
    F = 256 and 41) and on edge cases (row blocks with only the dummy
    slot, a single hub spanning many merge tiles, a partial last tile,
@@ -27,31 +27,54 @@ order; any failure raises and the script exits non-zero:
    larger of the bytes one call must move (each array of its layout
    read once, B read once, C written once) over the HBM rate and the
    product's 2 * nnz * F FLOPs over the fp32 peak.
-3. Main path: GraphSAGE (configs/gnn_sage: 3 layers, width 256) with
-   Reddit's input width 602 and 41 classes, random weights and features
-   from seed 0, forward under torch.no_grad through AutoSage on the card:
-   decide per layer width (features -> estimate -> shortlist -> probe ->
-   guardrail -> cache), logits held against the torch reference path
-   (sage=None) on the card, then a fresh replay-only AutoSage must
-   replay the same choices.
-4. Each kernel family inside the model: ragged_ell_cuda, block_ell_cuda,
-   merge_path_cuda and hub_ragged_cuda pinned in turn through the
-   schedule cache (the replay path users rely on); each forward must
-   launch its kernel and match the reference logits.
+3. SpMM main path: GraphSAGE (configs/gnn_sage: 3 layers, width 256)
+   with Reddit's input width 602 and 41 classes, random weights and
+   features from seed 0, forward under torch.no_grad through AutoSage on
+   the card: decide per layer width (features -> estimate -> shortlist
+   -> probe -> guardrail -> cache), logits held against the torch
+   reference path (sage=None) on the card, then a fresh replay-only
+   AutoSage must replay the same choices.
+4. Each SpMM kernel family inside the model: ragged_ell_cuda,
+   block_ell_cuda, merge_path_cuda and hub_ragged_cuda pinned in turn
+   through the schedule cache (the replay path users rely on); each
+   forward must launch its kernel and match the reference logits.
+5. Attention kernels against their plain versions, on edge cases (row
+   blocks with only the dummy slot, rows without edges inside non-empty
+   row blocks, one hub over 2048 slots, a deduplicated hub_skew graph;
+   D = 64 and 256) and at the attention slice's shapes
+   (reddit_like(0.25, seed=0).dedup_edges(), D = 256), same tolerance
+   (an online softmax against the plain version's two-pass one); dense-W
+   must equal ragged bit for bit and a second launch must give the same
+   bits. Times of each kernel and its plain version beside the bound
+   (the mask tiles and index arrays read once, q, k, v read once, out
+   written once; 4 * nnz * D FLOPs), and of the composed CSR pipeline
+   (gather SDDMM -> row softmax -> gather SpMM), the guardrail's
+   baseline: no single PyTorch call computes CSR attention, so
+   ``library_ms`` is null and the pipeline's time is ``baseline_pipe_ms``.
+6. Attention main path: a GAT layer (configs/gnn_sage width 256, input
+   width 602) with seeded random weights and features on the
+   deduplicated Reddit-0.25 graph, forward under torch.no_grad through
+   AutoSage.decide_attention (features -> estimate -> shortlist -> probe
+   -> guardrail -> cache), held against the sage=None reference on the
+   card; a fresh replay-only AutoSage replays the choice; then
+   fused_attention_cuda and ragged_attention_cuda are pinned in turn
+   through the cache, each forward must launch its kernel and match the
+   reference, and the two outputs must be equal bit for bit.
 
-The main path is every forward of phases 3 and 4, through the entry
+The main path is every forward of phases 3, 4 and 6, through the entry
 points a user calls: decide (probes included) + two forwards, the
-replay forward, and each pinned forward. The launch counters are set to
-0 just before each of these runs and read just after it; a kernel's
-``launches`` is the sum over them, and every kernel must have launched.
-The host/device breakdown of a warm forward is timed outside these
-runs and is not counted. The second-to-last line is the kernels JSON,
-the last line the result JSON.
+replay forward, and each pinned forward. The launch counters of every
+kernel are set to 0 just before each of these runs and read just after
+it; a kernel's ``launches`` is the sum over them, and every kernel must
+have launched. The host/device breakdown of a warm forward is timed
+outside these runs and is not counted. The second-to-last line is the
+kernels JSON, the last line the result JSON.
 """
 from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -75,6 +98,14 @@ REPLACES = {
     "spmm_block_ell": "src/repro/kernels/spmm_pallas.py:79",
     "spmm_ragged_ell": "src/repro/kernels/spmm_pallas.py:128",
     "spmm_merge_path": "src/repro/kernels/spmm_pallas.py:220",
+    "fused_csr_attention": "src/repro/kernels/attention_pallas.py:60",
+    "fused_ragged_attention": "src/repro/kernels/attention_pallas.py:141",
+}
+KERNEL_SOURCES = ("spmm", "attention")  # src/repro_torch/csrc/<name>.cu
+D_ATTN = 256  # configs/gnn_sage width: the GAT layer's head dimension
+ATTN_FAMILY_KERNEL = {
+    "fused_attention_cuda": "fused_csr_attention",
+    "ragged_attention_cuda": "fused_ragged_attention",
 }
 FAMILIES = ("ragged_ell_cuda", "block_ell_cuda", "merge_path_cuda", "hub_ragged_cuda")
 FAMILY_KERNEL = {
@@ -120,6 +151,38 @@ def check_equal(name, a, b) -> None:
 
     if not torch.equal(a, b):
         raise AssertionError(f"{name}: not bit-equal, max diff {float((a - b).abs().max())}")
+
+
+def reset_launches() -> None:
+    from repro_torch.kernels import attention as ka
+    from repro_torch.kernels import spmm as ks
+
+    ks.reset_launches()
+    ka.reset_launches()
+
+
+def launches() -> dict:
+    from repro_torch.kernels import attention as ka
+    from repro_torch.kernels import spmm as ks
+
+    return {**ks.LAUNCHES, **ka.LAUNCHES}
+
+
+def counted(label, fn, totals, device):
+    """fn() under torch.no_grad with every launch count set to 0 just
+    before it and read just after; the counts join the main path's
+    ``totals``. Returns (fn's result, the counts)."""
+    import torch
+
+    reset_launches()
+    with torch.no_grad():
+        out = fn()
+    sync(device)
+    got = launches()
+    for k, v in got.items():
+        totals[k] = totals.get(k, 0) + v
+    log(f"launches in {label}: {json.dumps(got)}")
+    return out, got
 
 
 # ------------------------------------------------------------ phase 2
@@ -364,18 +427,8 @@ def model_phase(graph, device, workdir: Path) -> dict:
     cache_path = workdir / "cache.json"
     totals = dict.fromkeys(ks.LAUNCHES, 0)
 
-    def counted(label, fn):
-        """fn() with every launch count set to 0 just before it and read
-        just after; the counts join the main path's totals."""
-        ks.reset_launches()
-        with torch.no_grad():
-            out = fn()
-        sync(device)
-        got = dict(ks.LAUNCHES)
-        for k, v in got.items():
-            totals[k] += v
-        log(f"launches in {label}: {json.dumps(got)}")
-        return out, got
+    def counted_(label, fn):
+        return counted(label, fn, totals, device)
 
     sage = AutoSage(device=device, cache=ScheduleCache(path=str(cache_path)))
     times = []
@@ -389,7 +442,7 @@ def model_phase(graph, device, workdir: Path) -> dict:
             times.append(time.perf_counter() - t0)
         return outs
 
-    (logits, logits_warm), _ = counted("decide + 2 forwards", two_forwards)
+    (logits, logits_warm), _ = counted_("decide + 2 forwards", two_forwards)
     err = check_close("scheduled vs reference logits", logits, ref_logits)
     check_close("scheduled forward, second call", logits_warm, logits)
     log(f"scheduled forward: cold {times[0]:.2f} s (decide + probe + prepare), warm "
@@ -407,7 +460,7 @@ def model_phase(graph, device, workdir: Path) -> dict:
     _warm_breakdown(model, graph, x, sage, device)  # not a counted run
 
     replay = AutoSage(device=device, cache=ScheduleCache(path=str(cache_path), replay_only=True))
-    logits_r, _ = counted("replay forward", lambda: model(graph, x, sage=replay))
+    logits_r, _ = counted_("replay forward", lambda: model(graph, x, sage=replay))
     for key, choice in choices.items():
         f = int(key.split("|")[2][2:])
         d = replay.decide(norm_csr(graph), f, "spmm")
@@ -432,7 +485,7 @@ def model_phase(graph, device, workdir: Path) -> dict:
             pins.put(key, {"choice": names[0], "probe_ms": {}, "estimates_ms": {}})
         pinned = AutoSage(device=device, cache=ScheduleCache(path=str(pinned_path), replay_only=True))
         t0 = time.perf_counter()
-        out, got = counted(f"{family} pinned forward", lambda: model(graph, x, sage=pinned))
+        out, got = counted_(f"{family} pinned forward", lambda: model(graph, x, sage=pinned))
         kernel = FAMILY_KERNEL[family]
         if got[kernel] < len(choices):
             raise AssertionError(f"{family}: {kernel} launched {got[kernel]} times in the forward")
@@ -442,15 +495,257 @@ def model_phase(graph, device, workdir: Path) -> dict:
         del pinned, out
         if device.type == "cuda":
             torch.cuda.empty_cache()
-    log(f"main-path launches (sum of the counted runs): {json.dumps(totals)}")
-    missing = [k for k, v in totals.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    log(f"SpMM main-path launches (sum of the counted runs): {json.dumps(totals)}")
+    return totals
+
+
+# ------------------------------------------------------- phases 5 & 6
+def _attn_layouts(csr, device) -> dict:
+    """Dense-W and ragged 8x8 layouts of a structural, deduplicated CSR,
+    uploaded. Without duplicate edges every block value is already the
+    0/1 mask, so the tiles go up as they are: no second host copy of the
+    dense-W table (13.6 GB at Reddit-0.25)."""
+    import torch
+
+    from repro_torch.sparse import csr_to_block_ell
+
+    def up(a):
+        return torch.from_numpy(a).to(device)
+
+    bell = csr_to_block_ell(csr.structural())
+    rag = bell.to_ragged()
+    out = {
+        "ragged": (up(rag.blkptr), up(rag.slot_colblk), up(rag.slot_vals)),
+        "dense": (up(bell.colblk), up(bell.vals)),
+        "nrb": bell.n_row_blocks, "width": bell.width, "n_slots": rag.n_slots,
+    }
+    del bell, rag
+    return out
+
+
+def _qkv(csr, d, device, seed):
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(csr.n_rows, d, generator=g).to(device),
+            torch.randn(csr.n_cols, d, generator=g).to(device),
+            torch.randn(csr.n_cols, d, generator=g).to(device))
+
+
+def _attn_run_all(lay, q, k, v, n_rows):
+    """kernel name -> (kernel call, plain call)."""
+    from repro_torch.kernels import attention as ka
+
+    dense, ragged = lay["dense"], lay["ragged"]
+    return {
+        "fused_csr_attention": (
+            lambda: ka.fused_csr_attention(*dense, q, k, v, n_rows=n_rows),
+            lambda: ka.fused_csr_attention_plain(*dense, q, k, v, n_rows=n_rows),
+        ),
+        "fused_ragged_attention": (
+            lambda: ka.fused_ragged_attention(*ragged, q, k, v, n_rows=n_rows),
+            lambda: ka.fused_ragged_attention_plain(*ragged, q, k, v, n_rows=n_rows),
+        ),
+    }
+
+
+def check_attention(tag, csr, lay, q, k, v, device) -> dict:
+    """Both attention kernels against their plain versions; dense-W ==
+    ragged bit for bit; a second launch gives the same bits; rows without
+    edges come out 0. Returns max errors."""
+    import torch
+
+    errs, outs = {}, {}
+    for name, (kern, plain) in _attn_run_all(lay, q, k, v, csr.n_rows).items():
+        got = kern()
+        sync(device)
+        errs[name] = check_close(f"{tag} {name}", got, plain())
+        check_equal(f"{tag} {name} run twice", got, kern())
+        outs[name] = got
+    check_equal(f"{tag} attention dense-W vs ragged", outs["fused_csr_attention"],
+                outs["fused_ragged_attention"])
+    empty = torch.from_numpy(csr.degrees == 0).to(device)
+    if bool(outs["fused_ragged_attention"][empty].any()):
+        raise AssertionError(f"{tag}: a row without edges has nonzero attention output")
+    return errs
+
+
+def attention_edge_cases(device) -> None:
+    """Small deduplicated graphs that hit the attention kernels' corners."""
+    import numpy as np
+
+    from repro_torch.sparse import CSR, hub_skew, single_hub
+
+    rng = np.random.default_rng(5)
+    deg = np.r_[rng.integers(1, 6, 8), np.zeros(24, np.int64), rng.integers(1, 6, 21)]
+    deg[2] = deg[45] = 0  # rows without edges inside row blocks that have some
+    empty = CSR(np.r_[0, np.cumsum(deg)].astype(np.int32),
+                rng.integers(0, 70, int(deg.sum())).astype(np.int32), None, deg.size, 70)
+    hub = single_hub(HUB_N, nnz_frac=0.9, seed=1)
+    skew = hub_skew(3000, 4, 0.05, 300, seed=2)
+    for tag, csr in (("empty-blocks/rows", empty), ("single-hub", hub), ("hub-skew", skew)):
+        csr = csr.dedup_edges()
+        lay = _attn_layouts(csr, device)
+        if tag == "single-hub" and lay["width"] < HUB_N // 8:
+            raise AssertionError(f"single-hub: the hub spans {lay['width']} slots only")
+        for d in (64, 256):
+            q, k, v = _qkv(csr, d, device, seed=d)
+            check_attention(f"{tag} D={d}", csr, lay, q, k, v, device)
+    log("attention edge cases: empty row blocks (dummy slot), rows without edges in "
+        f"non-empty blocks, single hub over {HUB_N // 8} slots, hub_skew; D=64,256: ok")
+
+
+def attention_kernel_phase(graph, device, reps: int) -> dict:
+    """Phase 5 at the slice's shapes: the deduplicated Reddit-0.25 graph,
+    D = 256. Returns the kernel records."""
+    from repro_torch.core.probe import time_callable
+    from repro_torch.core.registry import _dev
+    from repro_torch.kernels import baselines as kb
+
+    t0 = time.perf_counter()
+    lay = _attn_layouts(graph, device)
+    sync(device)
+    log(f"attention layouts 8x8: nrb={lay['nrb']} W={lay['width']} slots={lay['n_slots']} "
+        f"({time.perf_counter() - t0:.1f} s host conversion + upload)")
+    q, k, v = _qkv(graph, D_ATTN, device, seed=7)
+    errs = check_attention(f"reddit D={D_ATTN}", graph, lay, q, k, v, device)
+    log(f"reddit-{SCALE} dedup D={D_ATTN}: max |kernel - plain| {json.dumps(errs)}; "
+        "dense-W == ragged bit for bit; second launch bit-equal")
+    aux = _dev(kb.prepare_csr(graph), device)
+    base_ms = time_callable(lambda: kb.attention_csr(aux, q, k, v), device,
+                            iters=reps).median_ms
+    log(f"composed CSR pipeline (guardrail baseline) D={D_ATTN}: {base_ms} ms")
+    records = {}
+    io_bytes = (2 * graph.n_rows + 2 * graph.n_cols) * D_ATTN * 4  # q, k, v, out
+    flops = 4.0 * graph.nnz * D_ATTN
+    for name, (kern, plain) in _attn_run_all(lay, q, k, v, graph.n_rows).items():
+        arrays = lay["dense" if name == "fused_csr_attention" else "ragged"]
+        byts = sum(a.numel() * a.element_size() for a in arrays) + io_bytes
+        rec = {
+            "name": name, "route": "cuda", "source": "src/repro_torch/csrc/attention.cu",
+            "replaces": REPLACES[name], "launches": 0, "max_abs_err": errs[name],
+            "ms": time_callable(kern, device, iters=reps).median_ms,
+            "plain_ms": time_callable(plain, device, iters=1).median_ms,
+            "bound_ms": max(byts / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3,
+            "bound_by": "bytes" if byts / HBM_BYTES_PER_S >= flops / FP32_FLOPS
+            else "operations",
+            "library_ms": None, "baseline_pipe_ms": base_ms,
+        }
+        records[name] = rec
+        log(f"  {name} D={D_ATTN}: {json.dumps(rec)}")
+    rag = records["fused_ragged_attention"]
+    log("fused_ragged_attention s per live slot beyond the bound: "
+        f"{(rag['ms'] - rag['bound_ms']) * 1e-3 / lay['n_slots']:.4e}")
+    del lay, aux
+    _empty_cache(device)
+    return records
+
+
+def _empty_cache(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def gat_phase(graph, device, workdir: Path) -> dict:
+    """Phase 6: decide + forward + replay, then each fused family pinned.
+    Returns the launch counts summed over these runs."""
+    import torch
+
+    from repro_torch.core import AutoSage, InputFeatures, ScheduleCache, obs, registry
+    from repro_torch.models.gnn import GAT
+
+    model = GAT(IN_DIM, D_ATTN, seed=0, device=device)
+    x = torch.randn(graph.n_rows, IN_DIM, generator=torch.Generator().manual_seed(2)).to(device)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        ref_out = model(graph, x)
+        sync(device)
+    log(f"GAT reference forward (sage=None): {time.perf_counter() - t0:.2f} s, "
+        f"out {tuple(ref_out.shape)}")
+    if not torch.isfinite(ref_out).all():
+        raise AssertionError("GAT reference output not finite")
+    totals: dict = {}
+    cache_path = workdir / "gat_cache.json"
+    sage = AutoSage(device=device, cache=ScheduleCache(path=str(cache_path)))
+    times = []
+
+    def two_forwards():
+        outs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            outs.append(model(graph, x, sage=sage))
+            sync(device)
+            times.append(time.perf_counter() - t0)
+        return outs
+
+    # the flight recorder's spans split the cold forward (decide: features,
+    # estimate, probe, guardrail; then prepare and run); ~µs per span
+    os.environ["AUTOSAGE_OBS"] = "1"
+    spans_before = obs.span_totals_ms()
+    (out, out_warm), _ = counted("GAT decide + 2 forwards", two_forwards, totals, device)
+    del os.environ["AUTOSAGE_OBS"]
+    spans = {k: round(v - spans_before.get(k, 0.0), 1)
+             for k, v in obs.span_totals_ms().items()}
+    err = check_close("GAT scheduled vs reference", out, ref_out)
+    check_close("GAT scheduled forward, second call", out_warm, out)
+    log(f"GAT scheduled forward: cold {times[0]:.2f} s (decide + probe + prepare), warm "
+        f"{times[1]:.3f} s; max |out - reference| {err:.3e}; span ms over both "
+        f"forwards {json.dumps(spans)}")
+    (key, entry), = json.loads(cache_path.read_text()).items()
+    choice = entry["choice"]
+    ests = sorted(entry["estimates_ms"].items(), key=lambda kv: kv[1])
+    log(f"attention decision: choice={choice} probe_ms={json.dumps(entry['probe_ms'])} "
+        f"estimates_ms={json.dumps(dict(ests))} "
+        f"guardrail={'accepted' if choice != 'baseline' else 'kept baseline'}")
+    hw = sage.hw
+    log(f"layout budget {hw.layout_budget_bytes:.4g} B; gate expressions: dense-W "
+        "n_rows*deg_max*bc, ragged nnz*64*4")
+    del sage
+    replay = AutoSage(device=device,
+                      cache=ScheduleCache(path=str(cache_path), replay_only=True))
+    out_r, _ = counted("GAT replay forward", lambda: model(graph, x, sage=replay),
+                       totals, device)
+    d = replay.decide_attention(graph.structural(), D_ATTN)
+    if not d.from_cache or d.choice != choice:
+        raise AssertionError(f"replay of {key}: {d.choice} != {choice}")
+    check_close("GAT replayed output", out_r, out)
+    log(f"replay-only AutoSage: same choice {choice}; output bit-equal: "
+        f"{bool(torch.equal(out_r, out))}")
+    del replay, out_r
+    _empty_cache(device)
+
+    feat = InputFeatures.from_csr(graph.structural(), D_ATTN, "attention")
+    pinned_out = {}
+    for family, kernel in ATTN_FAMILY_KERNEL.items():
+        names = [v.full_name() for v in registry.candidates(feat, hw, device)
+                 if v.name == family]
+        if len(names) != 1:
+            raise AssertionError(f"{family}: candidates {names}")
+        pinned_path = workdir / f"pinned_{family}.json"
+        ScheduleCache(path=str(pinned_path)).put(
+            key, {"choice": names[0], "probe_ms": {}, "estimates_ms": {}})
+        pinned = AutoSage(device=device,
+                          cache=ScheduleCache(path=str(pinned_path), replay_only=True))
+        t0 = time.perf_counter()
+        o, got = counted(f"{family} pinned GAT forward",
+                         lambda: model(graph, x, sage=pinned), totals, device)
+        if got[kernel] < 1:
+            raise AssertionError(f"{family}: {kernel} did not launch in the forward")
+        err = check_close(f"{family} output vs reference", o, ref_out)
+        log(f"pinned {family}: {kernel} +{got[kernel]} launches, max |out - reference| "
+            f"{err:.3e}, {time.perf_counter() - t0:.1f} s incl. prepare")
+        pinned_out[family] = o
+        del pinned
+        _empty_cache(device)
+    check_equal("GAT pinned dense-W vs ragged", *pinned_out.values())
+    log(f"GAT main-path launches (sum of the counted runs): {json.dumps(totals)}")
     return totals
 
 
 def run(device, scale: float = SCALE, reps: int = 5) -> list:
-    """Phases 2-4 on ``device``; returns the kernels records."""
+    """Phases 2-6 on ``device``; returns the kernels records."""
     from repro_torch.models.gnn import norm_csr
     from repro_torch.sparse import reddit_like
 
@@ -462,6 +757,20 @@ def run(device, scale: float = SCALE, reps: int = 5) -> list:
     records = kernel_phase(norm_csr(graph), device, reps)
     with tempfile.TemporaryDirectory() as tmp:
         counts = model_phase(graph, device, Path(tmp))
+    t0 = time.perf_counter()
+    dedup = graph.dedup_edges()
+    del graph
+    log(f"dedup_edges: {dedup.nnz} edges, max degree {int(dedup.degrees.max())} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    attention_edge_cases(device)
+    records.update(attention_kernel_phase(dedup, device, reps))
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, n in gat_phase(dedup, device, Path(tmp)).items():
+            counts[name] = counts.get(name, 0) + n
+    log(f"main-path launches (sum of the counted runs): {json.dumps(counts)}")
+    missing = [name for name in records if counts.get(name, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: {missing}")
     for name, rec in records.items():
         rec["launches"] = counts[name]
     return list(records.values())
@@ -474,7 +783,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
-    if not (SRC / "repro_torch" / "csrc" / "spmm.cu").is_file():
+    if not all((SRC / "repro_torch" / "csrc" / f"{n}.cu").is_file() for n in KERNEL_SOURCES):
         print("chip_smoke: run from the root of a checkout (src/repro_torch is missing)",
               file=sys.stderr)
         return 1
@@ -492,7 +801,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    build.build(["spmm"])
+    build.build(KERNEL_SOURCES)
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
     for name, text in build.build_log.items():
         for line in text.splitlines():

@@ -12,9 +12,11 @@ from repro_torch.core.features import (
     resolve_device,
 )
 from repro_torch.core.guardrail import GuardrailDecision, apply_guardrail
+from repro_torch.core.pipeline import AttentionDecision
 from repro_torch.core.scheduler import AutoSage, Decision, ProbeOutcome
 
 __all__ = [
+    "AttentionDecision",
     "AutoSage",
     "CacheKey",
     "Decision",

@@ -1,7 +1,8 @@
 """Roofline-style candidate estimates (paper §4.2 'shortlist candidates
 with a roofline-style estimate').
 
-Port of the SpMM half of repro/core/estimate.py. Each variant is
+Port of the SpMM and attention parts of repro/core/estimate.py (with
+the SDDMM branches the composed attention pipelines use). Each variant is
 modelled by the branch of the `repro` family it ports
 (registry.PORTED_FROM), so ``ragged_ell_cuda`` is costed exactly like
 ``ragged_ell_pallas``. Two constants of the JAX model described a Pallas
@@ -203,13 +204,85 @@ def estimate_spmm(feat: InputFeatures, hw: HardwareSpec, variant: str,
     return _roofline(bytes_moved, flops, hw)
 
 
+def estimate_sddmm(feat: InputFeatures, hw: HardwareSpec, variant: str,
+                   knobs: Dict) -> float:
+    """The SDDMM stages of the composed attention pipelines; the block
+    families join with the SDDMM slice."""
+    n, f, nnz = feat.n_rows, feat.f, feat.nnz
+    if variant == "gather_dot":
+        bytes_moved = nnz * (2 * f * BYTES_F32 + 8 + BYTES_F32)
+        flops = 2.0 * nnz * f
+    elif variant == "row_ell":
+        padded = n * max(feat.deg_max, 1.0)
+        bytes_moved = padded * (f * BYTES_F32 + 8) + n * f * BYTES_F32
+        flops = 2.0 * padded * f
+        return _roofline(bytes_moved, flops, hw) + _row_serial_penalty(
+            feat, hw, knobs
+        )
+    else:
+        raise KeyError(variant)
+    return _roofline(bytes_moved, flops, hw)
+
+
+# layout each attention stage works in; a mismatch inside a composed
+# pipeline costs an extra nnz-sized scatter/gather between stages
+_ATTN_STAGE_LAYOUT = {
+    "gather_dot": "csr",
+    "gather_segsum": "csr",
+    "row_ell": "ell",
+}
+
+
+def estimate_attention(feat: InputFeatures, hw: HardwareSpec, variant: str,
+                       knobs: Dict) -> float:
+    """Pipeline-granularity roofline for CSR attention (core/pipeline.py).
+
+    Composed "pipe" candidates pay two inter-stage round-trips through
+    device memory that a per-op estimate never sees: SDDMM writes logits
+    which softmax reads back, and softmax writes probs which the
+    value-SpMM reads back (4 * nnz * 4 B of traffic). The fused kernels
+    keep logits/probs on chip, so their estimate has no inter-stage term.
+    """
+    nnz, f = feat.nnz, feat.f
+    family = PORTED_FROM.get(variant, variant)
+    if family == "pipe":
+        s, m = knobs["sddmm"], knobs["spmm"]
+        t = estimate_sddmm(feat, hw, s, {})
+        # softmax: read logits + mask bookkeeping, write probs; few flops
+        t += 2.0 * nnz * BYTES_F32 / hw.hbm_bw + 6.0 * nnz / hw.peak_flops
+        t += estimate_spmm(feat, hw, m, {})
+        # the two inter-stage round-trips (logits w+r, probs w+r)
+        t += 4.0 * nnz * BYTES_F32 / hw.hbm_bw
+        if _ATTN_STAGE_LAYOUT[s] != _ATTN_STAGE_LAYOUT[m]:
+            # CSR<->ELL conversion: one nnz-sized gather/scatter + indices
+            t += nnz * (BYTES_F32 + 8) / hw.hbm_bw
+        return t
+    if family in ("fused_attention_pallas", "ragged_attention_pallas"):
+        ragged = family == "ragged_attention_pallas"
+        bc = knobs.get("bc", 8)
+        eff = _block_ell_elems(feat, knobs, ragged, variant)  # padded tile work
+        # q/k/v/out streamed once; k,v tiles re-fetched per stored block;
+        # structural mask read once; no logits/probs round-trips
+        bytes_moved = (feat.n_rows * 2 + feat.n_cols * 2) * f * BYTES_F32
+        bytes_moved += eff * BYTES_F32  # mask tiles
+        bytes_moved += eff * (2.0 * f * BYTES_F32 / bc)  # k/v block gathers
+        flops = 4.0 * eff * f + 8.0 * eff  # sddmm + spmm + online softmax
+        n_steps = _block_ell_steps(eff, knobs)
+        return _roofline(bytes_moved, flops, hw) + n_steps * hw.step_s
+    raise KeyError(variant)
+
+
 def estimate(feat: InputFeatures, hw: HardwareSpec, variant: str,
              knobs: Dict) -> float:
-    """Seconds for ``variant`` on ``feat``. Only SpMM is ported; other op
-    kinds raise KeyError (estimate.py's "unknown variant" signal)."""
-    if op_kind(feat.op) != "spmm":
-        raise KeyError(feat.op)
-    t = estimate_spmm(feat, hw, variant, knobs)
-    if op_dynamic_vals(feat.op):
-        t += feat.nnz * (BYTES_F32 + 8) / hw.hbm_bw
-    return t
+    """Seconds for ``variant`` on ``feat``, dispatched on the op's compute
+    kind. SpMM and op "attention" are ported; other ops raise KeyError
+    (estimate.py's "unknown variant" signal)."""
+    kind = op_kind(feat.op)
+    if kind == "spmm":
+        t = estimate_spmm(feat, hw, variant, knobs)
+        if op_dynamic_vals(feat.op):
+            t += feat.nnz * (BYTES_F32 + 8) / hw.hbm_bw
+        return t
+    if feat.op == "attention":
+        return estimate_attention(feat, hw, variant, knobs)
+    raise KeyError(feat.op)

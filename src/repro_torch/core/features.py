@@ -25,6 +25,9 @@ class HardwareSpec:
     ``step_s`` is the fixed charge per kernel step (one slot of one
     feature tile) and ``p_eff`` the number of row blocks the card works
     on at once; both feed estimate.py's block-ELL models.
+    ``layout_budget_bytes`` is the most one prepared layout table may
+    take: the registry's fused-attention gates compare the JAX package's
+    layout-size expressions against it (512 MB there, sized for a TPU).
     """
 
     name: str
@@ -33,6 +36,7 @@ class HardwareSpec:
     link_bw: float  # bytes/s per link
     step_s: float = 2e-7
     p_eff: float = 16.0
+    layout_budget_bytes: float = 512e6
 
     @staticmethod
     def cpu() -> "HardwareSpec":
@@ -55,8 +59,12 @@ class HardwareSpec:
         at the HBM rate): (54.04 ms - 1.58 ms) / 19,884,395 steps for the
         8x8 ragged layout of Reddit-0.25 at F = 256, measured by
         chip_smoke.py (printed as ``ragged_s_per_step``) on an NVIDIA H100
-        80GB HBM3 at a 700 W power limit."""
-        return HardwareSpec("h100", 67e12, 3.35e12, 450e9, step_s=2.6384e-9, p_eff=132.0)
+        80GB HBM3 at a 700 W power limit. ``layout_budget_bytes`` is half
+        the card's 80 GB (`current` reads the card's own total): one
+        layout table may take half, the features, the outputs, a second
+        candidate's table and the allocator's slack the rest."""
+        return HardwareSpec("h100", 67e12, 3.35e12, 450e9, step_s=2.6384e-9,
+                            p_eff=132.0, layout_budget_bytes=40e9)
 
     @staticmethod
     def from_profile(name: str) -> "HardwareSpec":
@@ -83,8 +91,11 @@ class HardwareSpec:
             return HardwareSpec.cpu()
         name = torch.cuda.get_device_name(device)
         if "H100" in name:
-            sms = torch.cuda.get_device_properties(device).multi_processor_count
-            return dataclasses.replace(HardwareSpec.h100(), p_eff=float(sms))
+            props = torch.cuda.get_device_properties(device)
+            return dataclasses.replace(
+                HardwareSpec.h100(), p_eff=float(props.multi_processor_count),
+                layout_budget_bytes=props.total_memory / 2,
+            )
         raise KeyError(
             f"no roofline profile for {name!r}; set AUTOSAGE_HW_PROFILE to one of "
             "cpu, cpu_wide, h100"

@@ -69,6 +69,14 @@ def span(name: str, **args: Any):
             )
 
 
+def span_totals_ms() -> Dict[str, float]:
+    """Total wall ms per span name over the spans recorded so far."""
+    out: Dict[str, float] = {}
+    for name, t0, t1, *_ in list(_spans):
+        out[name] = out.get(name, 0.0) + (t1 - t0) * 1e-6
+    return out
+
+
 # log-spaced histogram bucket bounds (ms), sqrt(2) apart
 _H_FACTOR = math.sqrt(2.0)
 _H_BOUNDS: Tuple[float, ...] = tuple(1e-3 * _H_FACTOR ** i for i in range(54))
@@ -130,6 +138,7 @@ class MetricsRegistry:
     def get(self, name: str, **labels: Any) -> Optional[float]:
         with self._lock:
             return self._counters.get(name, {}).get(_label_key(labels))
+
 
 
 REGISTRY = MetricsRegistry()

@@ -1,7 +1,8 @@
-"""Kernel-variant registry: the SpMM candidate pool the scheduler picks
-from.
+"""Kernel-variant registry: the SpMM and CSR-attention candidate pools
+the scheduler picks from.
 
-Port of the SpMM part of repro/core/registry.py. A Variant bundles
+Port of the SpMM and attention parts of repro/core/registry.py. A
+Variant bundles
 
   prepare(csr) -> aux dict             host-side format conversion
                                        (numpy), amortized
@@ -10,9 +11,17 @@ Port of the SpMM part of repro/core/registry.py. A Variant bundles
   applicable(feat, hw) -> bool         hard constraints
 
 The library-op variants (kernels/baselines.py) always join the pool;
-``gather_segsum`` is the guardrail baseline. The hand-written CUDA
-kernels (kernels/spmm.py) join it on a CUDA device, or on the CPU when
-AUTOSAGE_PROBE_PALLAS=1, where they run their plain versions.
+``gather_segsum`` (SpMM) and the composed ``pipe[sddmm=gather_dot,
+spmm=gather_segsum]`` (attention) are the guardrail baselines. The
+hand-written CUDA kernels (kernels/spmm.py, kernels/attention.py) join
+it on a CUDA device, or on the CPU when AUTOSAGE_PROBE_PALLAS=1, where
+they run their plain versions.
+
+The fused-attention memory gates compare the JAX package's layout-size
+expressions against ``HardwareSpec.layout_budget_bytes``: 512 MB on the
+CPU profiles (so the CPU candidate lists equal the JAX package's) and
+half the card's memory on an H100, where the JAX package's TPU-sized
+512 MB would shut both fused kernels out of Reddit-scale graphs.
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ from repro_torch.core.features import (
     op_dynamic_vals,
     op_kind,
 )
+from repro_torch.kernels import attention as ka
 from repro_torch.kernels import baselines as kb
 from repro_torch.kernels import spmm as ks
 from repro_torch.sparse.bsr import csr_to_block_ell, hub_split
@@ -48,6 +58,9 @@ PORTED_FROM = {
     "ragged_ell_cuda": "ragged_ell_pallas",
     "merge_path_cuda": "merge_path_pallas",
     "hub_ragged_cuda": "hub_ragged_pallas",
+    "pipe": "pipe",
+    "fused_attention_cuda": "fused_attention_pallas",
+    "ragged_attention_cuda": "ragged_attention_pallas",
 }
 
 _INT32_MAX = np.iinfo(np.int32).max
@@ -271,13 +284,132 @@ def _cuda_spmm_variants(feat: InputFeatures) -> List[Variant]:
     return out
 
 
+# ------------------------------------------- pipeline-level attention
+# Attention candidates are whole pipelines: each composed
+# {sddmm layout x spmm layout} pair, plus the fused hand-written kernels.
+# The pipeline scheduler (core/pipeline.py) probes these end to end; a
+# per-op decide can never justify a fused kernel because its benefit (no
+# logits/probs round-trip through device memory) lies *between* ops.
+def _structural(csr: CSR) -> CSR:
+    """Attention uses the sparsity pattern only. Drop stored values so the
+    ELL/block-ELL masks (built from val != 0) keep explicitly zero-weighted
+    edges — the CSR baseline ignores values and includes them."""
+    return csr.structural()
+
+
+def _prepare_attn_ell(csr: CSR) -> Dict:
+    return kb.prepare_row_ell(_structural(csr))
+
+
+def _prepare_attn_mixed(csr: CSR) -> Dict:
+    return {
+        **kb.prepare_csr(csr),
+        **{f"ell_{k}": v for k, v in _prepare_attn_ell(csr).items()},
+        **kb.prepare_edge_slots(csr),
+    }
+
+
+def _to_mask(tiles: np.ndarray) -> np.ndarray:
+    """The 0/1 mask of a structural layout's value tiles, in place: the
+    tiles count edges per cell (1 without duplicates), so clipping at 1
+    is ``tiles != 0`` without a second full-size host copy (13.6 GB for
+    dense-W at Reddit-0.25)."""
+    return np.minimum(tiles, 1.0, out=tiles)
+
+
+def _prepare_attn_fused(csr: CSR, rb: int, bc: int) -> Dict:
+    bell = csr_to_block_ell(_structural(csr), rb=rb, bc=bc)
+    return {"colblk": bell.colblk, "mask": _to_mask(bell.vals), "n_rows": bell.n_rows}
+
+
+def _build_attn_fused(aux: Dict, device: torch.device) -> Callable:
+    dev = _dev(aux, device)
+    n = int(aux["n_rows"])
+    return lambda q, k, v: ka.fused_csr_attention(
+        dev["colblk"], dev["mask"], q, k, v, n_rows=n
+    )
+
+
+def _prepare_attn_ragged(csr: CSR, rb: int, bc: int) -> Dict:
+    bell = csr_to_block_ell(_structural(csr), rb=rb, bc=bc)
+    rag = bell.to_ragged()
+    return {
+        "blkptr": rag.blkptr,
+        "slot_colblk": rag.slot_colblk,
+        "mask": _to_mask(rag.slot_vals),
+        "n_rows": rag.n_rows,
+        "padding_frac": bell.padding_frac,
+    }
+
+
+def _build_attn_ragged(aux: Dict, device: torch.device) -> Callable:
+    dev = _dev(aux, device)
+    n = int(aux["n_rows"])
+    return lambda q, k, v: ka.fused_ragged_attention(
+        dev["blkptr"], dev["slot_colblk"], dev["mask"], q, k, v, n_rows=n
+    )
+
+
+def _attention_variants(feat: InputFeatures, include_kernels: bool) -> List[Variant]:
+    stage_impls = {
+        ("gather_dot", "gather_segsum"): (kb.prepare_csr, kb.attention_csr),
+        ("row_ell", "row_ell"): (_prepare_attn_ell, kb.attention_ell),
+        ("row_ell", "gather_segsum"): (_prepare_attn_mixed, kb.attention_ell_to_csr),
+        ("gather_dot", "row_ell"): (_prepare_attn_mixed, kb.attention_csr_to_ell),
+    }
+    vs = []
+    for (s, m), (prep, fn) in stage_impls.items():
+        needs_ell = "row_ell" in (s, m)
+        vs.append(Variant(
+            name="pipe",
+            op="attention",
+            prepare=prep,
+            build=lambda aux, device, fn=fn: (
+                lambda q, k, v, a=_dev(aux, device): fn(a, q, k, v)
+            ),
+            applicable=(
+                (lambda f, hw: _ell_applicable(f)) if needs_ell
+                else (lambda f, hw: True)
+            ),
+            knobs={"sddmm": s, "spmm": m},
+            is_baseline=(s == "gather_dot" and m == "gather_segsum"),
+        ))
+    if include_kernels:
+        rb, bc = 8, 8
+        vs.append(Variant(
+            name="fused_attention_cuda",
+            op="attention",
+            prepare=lambda csr: _prepare_attn_fused(csr, rb, bc),
+            build=_build_attn_fused,
+            # duplicate edges merge in block-ELL masking (a different
+            # function than the pipeline computes); the mask table grows
+            # with n_rows x deg_max under skew
+            applicable=lambda f, hw: not f.dup_edges
+            and f.n_rows * f.deg_max * bc <= hw.layout_budget_bytes,
+            knobs={"rb": rb, "bc": bc},
+        ))
+        vs.append(Variant(
+            name="ragged_attention_cuda",
+            op="attention",
+            prepare=lambda csr: _prepare_attn_ragged(csr, rb, bc),
+            build=_build_attn_ragged,
+            # same duplicate-edge gate; the mask table scales with live
+            # slots (<= nnz tiles), not n_rows x deg_max
+            applicable=lambda f, hw: not f.dup_edges
+            and f.nnz * rb * bc * 4 <= hw.layout_budget_bytes,
+            knobs={"rb": rb, "bc": bc, "ragged": True},
+        ))
+    return vs
+
+
 def candidates(
     feat: InputFeatures,
     hw: HardwareSpec,
     device: torch.device,
     include_kernels: Optional[bool] = None,
 ) -> List[Variant]:
-    if op_kind(feat.op) != "spmm" or op_dynamic_vals(feat.op):
+    kind = op_kind(feat.op)
+    if op_dynamic_vals(feat.op) or kind == "sddmm" or feat.op == "csr_attention":
         raise NotImplementedError(
             f"op {feat.op!r} is not ported to repro_torch yet (ROADMAP.md Queue 1)"
         )
@@ -285,9 +417,12 @@ def candidates(
         include_kernels = (
             device.type == "cuda" or os.environ.get("AUTOSAGE_PROBE_PALLAS") == "1"
         )
-    vs = _spmm_variants(feat)
-    if include_kernels:
-        vs += _cuda_spmm_variants(feat)
+    if kind == "attention":
+        vs = _attention_variants(feat, include_kernels)
+    else:
+        vs = _spmm_variants(feat)
+        if include_kernels:
+            vs += _cuda_spmm_variants(feat)
     return [v for v in vs if v.applicable(feat, hw)]
 
 

@@ -1,10 +1,10 @@
 """AutoSAGE scheduler: estimate -> micro-probe -> guardrail -> cache.
 
-Port of repro/core/scheduler.py for SpMM: the paper's §4.2 decision
-procedure (`autosage_decide`) with the persistent cache fast path,
-slope probing on induced subgraphs with identical sampling per candidate, the top-k
-shortlist by roofline estimate and the non-regression guardrail
-(Prop. 1).
+Port of repro/core/scheduler.py for SpMM and (through core/pipeline.py)
+CSR attention: the paper's §4.2 decision procedure (`autosage_decide`)
+with the persistent cache fast path, slope probing on induced subgraphs
+with identical sampling per candidate, the top-k shortlist by roofline
+estimate and the non-regression guardrail (Prop. 1).
 
 The JAX package's estimate-space transfer from a peer device class's
 entry (core/transfer.py) needs a fleet of device classes; it joins the
@@ -62,16 +62,24 @@ class ProbeOutcome:
 def default_probe_args(
     op: str, f: int, device: torch.device, seed: int = 0
 ) -> Callable[[CSR], tuple]:
-    """Random dense operands of width f on ``device``, per subgraph."""
-    if features_mod.op_kind(op) != "spmm" or features_mod.op_dynamic_vals(op):
+    """Random dense operands of width f on ``device``, per subgraph,
+    shaped for ``op``: (B,) for SpMM, (q, k, v) for attention."""
+    kind = features_mod.op_kind(op)
+    if kind == "sddmm" or features_mod.op_dynamic_vals(op):
         raise NotImplementedError(f"op {op!r} is not ported to repro_torch yet")
 
     def fn(sub: CSR) -> tuple:
         # per-subgraph stream: the 1x and 2x probe subgraphs must not get
         # byte-identical operands (a warm cache would bias the slope)
         rng = np.random.default_rng((seed, sub.n_rows, sub.nnz))
-        b = rng.standard_normal((sub.n_cols, f)).astype(np.float32)
-        return (torch.from_numpy(b).to(device),)
+        if kind == "spmm":
+            shapes = [(sub.n_cols, f)]
+        else:
+            shapes = [(sub.n_rows, f), (sub.n_cols, f), (sub.n_cols, f)]
+        return tuple(
+            torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+            for shape in shapes
+        )
 
     return fn
 
@@ -337,3 +345,23 @@ class AutoSage:
                 self._runners.pop(next(iter(self._runners)))
         self._runners[key] = runner  # (re)insert at MRU position
         return runner
+
+    # ---- pipeline-level CSR attention (core/pipeline.py) -------------
+    def decide_attention(self, csr: CSR, d: int, seed: int = 0,
+                         stage_breakdown: bool = False):
+        """Joint decision over the composed {sddmm x softmax x spmm}
+        pipelines and the fused CUDA kernels; cached under op="attention"."""
+        from repro_torch.core import pipeline
+
+        return pipeline.decide_attention(
+            self, csr, d, seed=seed, stage_breakdown=stage_breakdown
+        )
+
+    def attention(self, csr: CSR, q, k, v, seed: int = 0):
+        """Decide + prepare + run on the full graph; returns (out,
+        decision). `repro_torch.api.attention(csr, q, k, v, sage=...)` is
+        the entry point; this keeps `repro`'s method for callers that want
+        the decision too."""
+        from repro_torch.core import pipeline
+
+        return pipeline.attention_forward(self, csr, q, k, v, seed=seed)

@@ -1,8 +1,9 @@
 """CSV + JSON telemetry (paper §10: every CSV gets a .meta.json sidecar
 with device, software versions, and the AUTOSAGE_* env snapshot).
 
-Port of repro/core/telemetry.py for the SpMM slice: the CSV writer and
-the per-op decide/prepare stream. JSONL streams keep one unbuffered
+Port of repro/core/telemetry.py for the SpMM and attention slices: the
+CSV writer, the per-op decide/prepare stream and the attention-decision
+stream. JSONL streams keep one unbuffered
 O_APPEND handle per process and write every record as one write() of one
 full line, so concurrent writer processes interleave whole records.
 """
@@ -138,4 +139,30 @@ def emit_decide_event(
     if padding:
         rec["padding_frac"] = padding
     append_jsonl(path, rec, device)
+    return path
+
+
+def emit_attention_decision(decision, device: torch.device) -> Optional[str]:
+    """Per-stage breakdown stream for pipeline decisions
+    (attention_decisions.jsonl, §8.7 analysis).
+
+    No-op unless AUTOSAGE_TELEMETRY_DIR is set. Returns the path written.
+    """
+    out = os.environ.get("AUTOSAGE_TELEMETRY_DIR")
+    if not out:
+        return None
+    path = str(Path(out) / "attention_decisions.jsonl")
+    append_jsonl(
+        path,
+        {
+            "op": decision.op,
+            "choice": decision.choice,
+            "from_cache": decision.from_cache,
+            "probe_ms": decision.probe_ms,
+            "stage_ms": getattr(decision, "stage_ms", {}),
+            "estimates_ms": decision.estimates_ms,
+            "probe_overhead_ms": decision.probe_overhead_ms,
+        },
+        device,
+    )
     return path

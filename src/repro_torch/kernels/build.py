@@ -20,6 +20,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = [
@@ -80,6 +82,33 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return paths
+
+
+# operands the kernels read as fp32; every other operand is int32
+FLOAT_OPERANDS = frozenset({"vals", "b", "mask", "q", "k", "v"})
+
+
+def check_operands(name: str, device: torch.device, **tensors: torch.Tensor) -> None:
+    """Device, dtype and contiguity of every operand a kernel reads."""
+    for arg, t in tensors.items():
+        want = torch.float32 if arg in FLOAT_OPERANDS else torch.int32
+        if t.device != device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, the operands on {device}")
+        if t.dtype != want:
+            raise TypeError(f"{name}: {arg} must be {want}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def raise_on(rc: int, name: str) -> None:
+    """Raise on a launcher's nonzero cudaError (a refused launch)."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+
+
+def stream_of(device: torch.device) -> int:
+    """The current CUDA stream of ``device``, as the launchers take it."""
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def load(name: str) -> ctypes.CDLL:

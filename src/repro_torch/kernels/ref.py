@@ -1,14 +1,17 @@
-"""Plain-torch oracles for the SpMM slice: ground truth for the tests,
-the guardrail baseline's semantics, and the plain versions the CUDA
+"""Plain-torch oracles for the forward ops: ground truth for the tests,
+the guardrail baselines' semantics, and the plain versions the CUDA
 kernels are held against.
 
-Port of the SpMM half of repro/kernels/ref.py, with the same signatures.
-Each oracle works in chunks of rows or slots, so its memory stays bounded
-at Reddit scale: the JAX oracle's one-shot gather ``b_blocks[slot_colblk]``
-would build an (S, bc, F) array of 163 GB there. ``spmm_ref`` sums each
-row with ``torch.segment_reduce`` over the sorted CSR rows, so it gives
-the same bits on every run; the layout oracles use ``index_add_``, whose
-CUDA atomics may change the last bits between runs.
+Port of the forward half of repro/kernels/ref.py (SpMM, SDDMM, row
+softmax, CSR attention and their block-ELL layout oracles), with the same
+signatures. Each oracle works in chunks of rows, row blocks or slots, so
+its memory stays bounded at Reddit scale: the JAX oracle's one-shot
+gather ``b_blocks[slot_colblk]`` would build an (S, bc, F) array of
+163 GB there, and ``sddmm_ref``'s ``x[rows]`` / ``y[colind]`` 28 GB each
+at 27.8 M edges and F = 256. The CSR oracles reduce each row with
+``torch.segment_reduce`` over the sorted CSR rows, so they give the same
+bits on every run; the layout oracles use ``index_add_``, whose CUDA
+atomics may change the last bits between runs.
 
 CSR device representation: rowptr int32[n+1], colind int32[nnz],
 val float[nnz] (or None => ones).
@@ -35,22 +38,84 @@ def spmm_ref(
     n_rows = rowptr.shape[0] - 1
     f = b.shape[1]
     out = torch.zeros((n_rows, f), dtype=b.dtype, device=b.device)
+    for r, r_hi, lo, hi in _row_chunks(rowptr, f, chunk_elems):
+        g = b.index_select(0, colind[lo:hi])
+        if val is not None:
+            g.mul_(val[lo:hi, None].to(b.dtype))
+        offsets = rowptr[r : r_hi + 1].to(torch.int64) - lo
+        out[r:r_hi] = torch.segment_reduce(g, "sum", offsets=offsets, axis=0)
+    return out
+
+
+def _row_chunks(rowptr: torch.Tensor, per_edge: int, chunk_elems: int):
+    """Yield (r, r_hi, lo, hi): the longest runs of rows whose edges
+    times ``per_edge`` fit ``chunk_elems`` (>= 1 row each), skipping runs
+    without edges; lo:hi is the runs' edge range."""
+    n_rows = rowptr.shape[0] - 1
     rp = rowptr.cpu().numpy().astype(np.int64)
-    budget = max(1, chunk_elems // max(f, 1))
+    budget = max(1, chunk_elems // max(per_edge, 1))
     r = 0
     while r < n_rows:
-        # the longest run of rows whose edges fit the budget (>= 1 row)
         r_hi = int(np.searchsorted(rp, rp[r] + budget, side="right")) - 1
         r_hi = min(max(r_hi, r + 1), n_rows)
-        lo, hi = int(rp[r]), int(rp[r_hi])
-        if hi > lo:
-            g = b.index_select(0, colind[lo:hi])
-            if val is not None:
-                g.mul_(val[lo:hi, None].to(b.dtype))
-            offsets = rowptr[r : r_hi + 1].to(torch.int64) - lo
-            out[r:r_hi] = torch.segment_reduce(g, "sum", offsets=offsets, axis=0)
+        if rp[r_hi] > rp[r]:
+            yield r, r_hi, int(rp[r]), int(rp[r_hi])
         r = r_hi
+
+
+def _edge_rows(rowptr: torch.Tensor, r: int, r_hi: int) -> torch.Tensor:
+    """Row id of every edge of rows r..r_hi-1."""
+    deg = torch.diff(rowptr[r : r_hi + 1].to(torch.int64))
+    return torch.repeat_interleave(
+        torch.arange(r, r_hi, device=rowptr.device), deg
+    )
+
+
+def sddmm_ref(
+    rowptr: torch.Tensor,
+    colind: torch.Tensor,
+    x: torch.Tensor,
+    y: torch.Tensor,
+    chunk_elems: int = CHUNK_ELEMS,
+) -> torch.Tensor:
+    """A~_ij = <X_i, Y_j> for (i,j) in S(A); returns val-vector[nnz]."""
+    out = torch.zeros(colind.shape[0], dtype=torch.result_type(x, y), device=x.device)
+    for r, r_hi, lo, hi in _row_chunks(rowptr, x.shape[1], chunk_elems):
+        g = x.index_select(0, _edge_rows(rowptr, r, r_hi))
+        g.mul_(y.index_select(0, colind[lo:hi]))
+        out[lo:hi] = g.sum(-1)
     return out
+
+
+def row_softmax_ref(
+    rowptr: torch.Tensor, colind: torch.Tensor, val: torch.Tensor
+) -> torch.Tensor:
+    """Numerically stable softmax within each CSR row (over its nnz).
+    Works on the nnz vector whole: its intermediates are nnz-sized."""
+    offsets = rowptr.to(torch.int64)
+    rows = _edge_rows(rowptr, 0, rowptr.shape[0] - 1)
+    row_max = torch.segment_reduce(val, "max", offsets=offsets, axis=0)
+    row_max = torch.where(torch.isfinite(row_max), row_max, 0.0)
+    shifted = torch.exp(val - row_max[rows])
+    denom = torch.segment_reduce(shifted, "sum", offsets=offsets, axis=0)
+    return shifted / torch.clamp(denom[rows], min=1e-30)
+
+
+def csr_attention_ref(
+    rowptr: torch.Tensor,
+    colind: torch.Tensor,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: Optional[float] = None,
+    chunk_elems: int = CHUNK_ELEMS,
+) -> torch.Tensor:
+    """SDDMM -> row-softmax -> SpMM (the paper's pipeline, §8.7)."""
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    logits = sddmm_ref(rowptr, colind, q, k, chunk_elems) * scale
+    probs = row_softmax_ref(rowptr, colind, logits)
+    return spmm_ref(rowptr, colind, probs, v, chunk_elems)
 
 
 def _b_blocks(b: torch.Tensor, bc: int) -> torch.Tensor:
@@ -73,6 +138,89 @@ def spmm_block_ell_ref(
     return spmm_ragged_ell_ref(
         slot_rowblk, colblk.reshape(-1), vals.reshape(nrb * w, rb, bc), b, nrb, bc
     )
+
+
+def _row_blocks(x: torch.Tensor, rb: int, n_blocks: int) -> torch.Tensor:
+    """x as (n_blocks, rb, F): rows past x's end read as zero."""
+    pad = n_blocks * rb - x.shape[0]
+    if pad > 0:
+        x = torch.cat([x, x.new_zeros((pad, x.shape[1]))])
+    return x[: n_blocks * rb].reshape(n_blocks, rb, x.shape[1])
+
+
+def chunk_ranges(n: int, per_item: int, chunk_elems: int = CHUNK_ELEMS):
+    """Yield (lo, hi) ranges over n items of ``per_item`` elements each,
+    ``chunk_elems`` elements (>= 1 item) at a time."""
+    step = max(1, chunk_elems // max(per_item, 1))
+    for lo in range(0, n, step):
+        yield lo, min(n, lo + step)
+
+
+def sddmm_block_ell_ref(
+    colblk: torch.Tensor,  # int32 (nrb, W)
+    mask: torch.Tensor,  # (nrb, W, rb, bc) structural 0/1 (incl. slot padding)
+    x: torch.Tensor,  # (nrb*rb, F)
+    y: torch.Tensor,  # (n_cols, F)
+    bc: int,
+    chunk_elems: int = CHUNK_ELEMS,
+) -> torch.Tensor:
+    """Block-ELL SDDMM: per stored micro-tile, X_i @ Y_j^T, masked."""
+    nrb, w, rb, _ = mask.shape
+    f = x.shape[1]
+    xb = _row_blocks(x, rb, nrb)
+    yb = _b_blocks(y, bc)
+    out = torch.empty(mask.shape, dtype=torch.result_type(x, y), device=x.device)
+    for lo, hi in chunk_ranges(nrb, w * bc * f, chunk_elems):
+        tiles = torch.einsum("srf,swbf->swrb", xb[lo:hi], yb[colblk[lo:hi].long()])
+        out[lo:hi] = tiles * mask[lo:hi]
+    return out
+
+
+def row_softmax_block_ell_ref(
+    vals: torch.Tensor,  # (nrb, W, rb, bc) logits
+    mask: torch.Tensor,  # structural mask, same shape
+    chunk_elems: int = CHUNK_ELEMS,
+) -> torch.Tensor:
+    """Softmax per padded row (axis over (W, bc)), masked positions -> 0."""
+    neg = torch.finfo(vals.dtype).min
+    out = torch.empty_like(vals)
+    nrb, w, rb, bc = vals.shape
+    for lo, hi in chunk_ranges(nrb, w * rb * bc, chunk_elems):
+        on = mask[lo:hi] > 0
+        masked = torch.where(on, vals[lo:hi], neg)
+        m = masked.amax(dim=(1, 3), keepdim=True)
+        m = torch.where(torch.isfinite(m), m, 0.0)
+        e = torch.exp(masked - m) * on
+        out[lo:hi] = e / torch.clamp(e.sum(dim=(1, 3), keepdim=True), min=1e-30)
+    return out
+
+
+def csr_attention_block_ell_ref(
+    colblk: torch.Tensor,
+    mask: torch.Tensor,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bc: int,
+    scale: Optional[float] = None,
+    chunk_elems: int = CHUNK_ELEMS,
+) -> torch.Tensor:
+    """Block-ELL SDDMM -> row softmax -> SpMM; returns (nrb*rb, D). Row
+    blocks are independent, so the three stages run per chunk of row
+    blocks and no (nrb, W, rb, bc) intermediate is ever whole."""
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    nrb, w, rb, _ = mask.shape
+    d = q.shape[1]
+    qb = _row_blocks(q, rb, nrb)
+    out = torch.empty((nrb, rb, d), dtype=torch.float32, device=q.device)
+    for lo, hi in chunk_ranges(nrb, w * bc * d, chunk_elems):
+        cb, mk = colblk[lo:hi], mask[lo:hi]
+        q_c = qb[lo:hi].reshape(-1, d)
+        logits = sddmm_block_ell_ref(cb, mk, q_c, k, bc, chunk_elems) * scale
+        probs = row_softmax_block_ell_ref(logits, mk, chunk_elems)
+        out[lo:hi] = spmm_block_ell_ref(cb, probs, v, bc).reshape(hi - lo, rb, d)
+    return out.reshape(nrb * rb, d)
 
 
 def spmm_ragged_ell_ref(

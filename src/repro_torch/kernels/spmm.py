@@ -77,27 +77,6 @@ def _lib() -> ctypes.CDLL:
     return _LIB
 
 
-def _check(name: str, device: torch.device, **tensors: torch.Tensor) -> None:
-    """Device, dtype and contiguity of every operand the kernel reads."""
-    for arg, t in tensors.items():
-        want = torch.float32 if arg in ("vals", "b") else torch.int32
-        if t.device != device:
-            raise ValueError(f"{name}: {arg} is on {t.device}, b is on {device}")
-        if t.dtype != want:
-            raise TypeError(f"{name}: {arg} must be {want}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be contiguous")
-
-
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 # ------------------------------------------------------------- ragged
 def spmm_ragged_ell_plain(blkptr, slot_colblk, slot_vals, b, n_rows=None):
     """Plain version of `spmm_ragged_ell` (the slot-compacted oracle)."""
@@ -124,7 +103,8 @@ def spmm_ragged_ell(
     if b.device.type == "cpu":
         return spmm_ragged_ell_plain(blkptr, slot_colblk, slot_vals, b, n_rows)
     name = "spmm_ragged_ell"
-    _check(name, b.device, blkptr=blkptr, slot_colblk=slot_colblk, vals=slot_vals, b=b)
+    build.check_operands(name, b.device, blkptr=blkptr, slot_colblk=slot_colblk,
+                         vals=slot_vals, b=b)
     nrb = blkptr.shape[0] - 1
     _, rb, bc = slot_vals.shape
     n_rows = nrb * rb if n_rows is None else n_rows
@@ -137,9 +117,9 @@ def spmm_ragged_ell(
     rc = _lib().autosage_spmm_rows(
         blkptr.data_ptr(), 0, slot_colblk.data_ptr(), slot_vals.data_ptr(),
         b.data_ptr(), out.data_ptr(), nrb, rb, bc, b.shape[0], f, n_rows,
-        f_tile(f), _stream(b.device),
+        f_tile(f), build.stream_of(b.device),
     )
-    _raise_on(rc, name)
+    build.raise_on(rc, name)
     LAUNCHES[name] += 1
     return out
 
@@ -164,7 +144,7 @@ def spmm_block_ell(
     if b.device.type == "cpu":
         return spmm_block_ell_plain(colblk, vals, b, n_rows)
     name = "spmm_block_ell"
-    _check(name, b.device, colblk=colblk, vals=vals, b=b)
+    build.check_operands(name, b.device, colblk=colblk, vals=vals, b=b)
     nrb, w, rb, bc = vals.shape
     n_rows = nrb * rb if n_rows is None else n_rows
     if not 0 <= n_rows <= nrb * rb:
@@ -176,9 +156,9 @@ def spmm_block_ell(
     rc = _lib().autosage_spmm_rows(
         None, w, colblk.data_ptr(), vals.data_ptr(), b.data_ptr(),
         out.data_ptr(), nrb, rb, bc, b.shape[0], f, n_rows, f_tile(f),
-        _stream(b.device),
+        build.stream_of(b.device),
     )
-    _raise_on(rc, name)
+    build.raise_on(rc, name)
     LAUNCHES[name] += 1
     return out
 
@@ -214,7 +194,7 @@ def spmm_merge_path(
     if b.device.type == "cpu":
         return spmm_merge_path_plain(blkptr, slot_colblk, tile_vals, b, n_slots, n_rows)
     name = "spmm_merge_path"
-    _check(name, b.device, blkptr=blkptr, slot_colblk=slot_colblk,
+    build.check_operands(name, b.device, blkptr=blkptr, slot_colblk=slot_colblk,
            tile_rowblk=tile_rowblk, tile_offset=tile_offset, vals=tile_vals, b=b)
     n_tiles, tile_slots, rb, bc = tile_vals.shape
     nrb = blkptr.shape[0] - 1
@@ -235,8 +215,8 @@ def spmm_merge_path(
         tile_rowblk.data_ptr(), tile_offset.data_ptr(), tile_slots,
         tiles_per_block, n_blocks, n_slots, b.data_ptr(), out.data_ptr(),
         carry.data_ptr(), rb, bc, b.shape[0], f, n_rows, f_tile(f),
-        _stream(b.device),
+        build.stream_of(b.device),
     )
-    _raise_on(rc, name)
+    build.raise_on(rc, name)
     LAUNCHES[name] += 1
     return out

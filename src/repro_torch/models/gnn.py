@@ -1,14 +1,16 @@
-"""The paper's own workload: GraphSAGE over CSR graphs, with
+"""The paper's own workload: GNN layers over CSR graphs, with
 AutoSAGE-scheduled sparse aggregation.
 
-Port of the SAGE part of repro/models/gnn.py (``init_gnn``, ``_norm_csr``,
-``sage_forward``):
+Port of repro/models/gnn.py (``init_gnn``, ``_norm_csr``,
+``sage_forward``, ``init_gat``, ``gat_layer``):
 
     GraphSAGE (mean aggregator): H' = act(A_norm @ H @ W_agg + H @ W_self)
+    GAT-style CSR attention:     H' = CSR_attention(A, HW_q, HW_k, HW_v)
+                                 (SDDMM -> row-softmax -> SpMM, §8.7)
 
-This slice serves the forward pass (inference). With a scheduler and
-gradients enabled, `api.spmm` raises: the scheduled backward ops are
-ROADMAP.md Queue 1 item 5.
+These slices serve the forward pass (inference). With a scheduler and
+gradients enabled, `api.spmm` and `api.attention` raise: the scheduled
+backward ops are ROADMAP.md Queue 1 items 5 and 6.
 """
 from __future__ import annotations
 
@@ -94,5 +96,55 @@ def sage_params_from_jax(params_np: Dict[str, Sequence[np.ndarray]], device=None
         for dst, src in zip([*model.w_agg, *model.w_self], [*w_agg, *w_self]):
             if tuple(dst.shape) != tuple(src.shape):
                 raise ValueError(f"weight shape {src.shape} != {tuple(dst.shape)}")
-            dst.copy_(torch.from_numpy(np.asarray(src, np.float32)))
+            dst.copy_(torch.from_numpy(np.array(src, np.float32)))
+    return model
+
+
+class GAT(nn.Module):
+    """One dot-product graph-attention layer: the paper's CSR-attention
+    pipeline over the projections q = x W_q, k = x W_k, v = x W_v. Weights
+    are drawn as in `repro.models.gnn.init_gat` (normal, scaled by
+    1/sqrt(in_dim)) from a torch.Generator seeded with ``seed``; parity
+    tests carry JAX's weights over with `gat_params_from_jax`."""
+
+    def __init__(
+        self,
+        in_dim: int,
+        d_model: int = SAGE_CONFIG["d_model"],
+        *,
+        seed: int = 0,
+        device=None,
+    ):
+        super().__init__()
+        device = resolve_device(device)
+        g = torch.Generator().manual_seed(seed)
+
+        def init():
+            w = torch.randn(in_dim, d_model, generator=g) * in_dim ** -0.5
+            return nn.Parameter(w.to(device))
+
+        self.wq, self.wk, self.wv = init(), init(), init()
+
+    def forward(self, csr: CSR, x: torch.Tensor, sage=None) -> torch.Tensor:
+        """(n_rows, d_model): attention through the scheduler ``sage``
+        (one pipeline-level decision) when given, else the torch
+        reference. Attention reads the graph's pattern only; deduplicate
+        a multigraph first (``csr.dedup_edges()``) or the fused kernels
+        stay out of the pool."""
+        q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
+        return api.attention(csr, q, k, v, sage=sage,
+                             differentiable=torch.is_grad_enabled())
+
+
+def gat_params_from_jax(params_np: Dict[str, np.ndarray], device=None) -> GAT:
+    """A `GAT` holding the weights of `repro.models.gnn.init_gat`'s output,
+    given as numpy arrays ``{"wq": ..., "wk": ..., "wv": ...}``."""
+    in_dim, d_model = params_np["wq"].shape
+    model = GAT(in_dim, d_model, device=device)
+    with torch.no_grad():
+        for name in ("wq", "wk", "wv"):
+            src = np.array(params_np[name], np.float32)
+            if src.shape != (in_dim, d_model):
+                raise ValueError(f"{name} shape {src.shape} != {(in_dim, d_model)}")
+            getattr(model, name).copy_(torch.from_numpy(src))
     return model

@@ -238,7 +238,10 @@ class CSR:
         if memo is None:
             rows = np.repeat(np.arange(self.n_rows, dtype=np.int64), self.degrees)
             key = rows * self.n_cols + self.colind.astype(np.int64)
-            memo = bool(np.unique(key).size != self.nnz)
+            # sort + neighbour compare, not np.unique: some numpy releases
+            # take a far slower path for a bare np.unique of a large array
+            key.sort()
+            memo = bool((key[1:] == key[:-1]).any())
             # memoized: feature extraction runs per decide (incl. warm-cache
             # hits in training loops)
             object.__setattr__(self, "_dup_memo", memo)

@@ -6,14 +6,24 @@ Run them on such a machine with
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerance: |kernel - plain| <= 1e-4 * |plain| + 1e-4 * max|plain| (the
-same fp32 products summed in another order). Dense-W equals ragged bit
-for bit and merge-path is bit-equal from launch to launch."""
+same fp32 products summed in another order; for attention, an online
+softmax against the plain version's two-pass one). Dense-W equals ragged
+bit for bit, and merge-path and the attention kernels are bit-equal from
+launch to launch."""
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import attention as ka
 from repro_torch.kernels import spmm as ks
 from repro_torch.models.gnn import norm_csr
-from repro_torch.sparse import build_merge_path, csr_to_block_ell, hub_skew, single_hub
+from repro_torch.sparse import (
+    CSR,
+    build_merge_path,
+    csr_to_block_ell,
+    hub_skew,
+    single_hub,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -83,3 +93,48 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
             torch.from_numpy(rag.slot_colblk).to(cuda),
             torch.from_numpy(rag.slot_vals).to(cuda), _b(csr, 64, cuda),
         )
+
+
+def _attn_graph(kind):
+    """Deduplicated graphs: a skewed one, one hub over 512 slots, and one
+    with empty row blocks and rows without edges in non-empty blocks."""
+    if kind == "hub_skew":
+        return hub_skew(3000, 4, 0.05, 300, seed=2).dedup_edges()
+    if kind == "single_hub":
+        return single_hub(4096, nnz_frac=0.9, seed=1).dedup_edges()
+    rng = np.random.default_rng(5)
+    deg = np.r_[rng.integers(1, 6, 8), np.zeros(24, np.int64), rng.integers(1, 6, 21)]
+    deg[2] = deg[45] = 0
+    colind = rng.integers(0, 70, int(deg.sum())).astype(np.int32)
+    return CSR(np.r_[0, np.cumsum(deg)].astype(np.int32), colind, None, deg.size,
+               70).dedup_edges()
+
+
+@pytest.mark.parametrize("kind", ["hub_skew", "single_hub", "empty_rows"])
+@pytest.mark.parametrize("d", [64, 256, 1000])
+def test_fused_attention_kernels(cuda, kind, d):
+    """Both attention kernels against their plain versions; D = 1000 takes
+    the launch path above 48 KB of dynamic shared memory."""
+    csr = _attn_graph(kind)
+    bell = csr_to_block_ell(csr)
+    rag = bell.to_ragged()
+    g = torch.Generator().manual_seed(d)
+    q = torch.randn(csr.n_rows, d, generator=g).to(cuda)
+    k = torch.randn(csr.n_cols, d, generator=g).to(cuda)
+    v = torch.randn(csr.n_cols, d, generator=g).to(cuda)
+    rargs = [torch.from_numpy(a).to(cuda) for a in
+             (rag.blkptr, rag.slot_colblk, (rag.slot_vals != 0).astype(np.float32))]
+    dargs = [torch.from_numpy(a).to(cuda) for a in
+             (bell.colblk, (bell.vals != 0).astype(np.float32))]
+    before = dict(ka.LAUNCHES)
+    ragged = ka.fused_ragged_attention(*rargs, q, k, v, n_rows=csr.n_rows)
+    dense = ka.fused_csr_attention(*dargs, q, k, v, n_rows=csr.n_rows)
+    torch.cuda.synchronize()
+    assert ka.LAUNCHES["fused_ragged_attention"] == before["fused_ragged_attention"] + 1
+    assert ka.LAUNCHES["fused_csr_attention"] == before["fused_csr_attention"] + 1
+    _close(ragged, ka.fused_ragged_attention_plain(*rargs, q, k, v, n_rows=csr.n_rows))
+    _close(dense, ka.fused_csr_attention_plain(*dargs, q, k, v, n_rows=csr.n_rows))
+    assert torch.equal(dense, ragged)
+    assert torch.equal(ragged, ka.fused_ragged_attention(*rargs, q, k, v, n_rows=csr.n_rows))
+    empty = torch.from_numpy(csr.degrees == 0).to(cuda)
+    assert not ragged[empty].any()

@@ -49,3 +49,16 @@ def test_importing_the_port_loads_neither():
         capture_output=True, text=True, timeout=120,
     )
     assert res.returncode == 0, res.stderr
+
+
+def test_every_slice_module_is_checked():
+    """The source check above walks the whole package: the attention
+    slice's modules are among the files it reads."""
+    checked = {str(p.relative_to(REPO)) for p in FILES}
+    assert {
+        "src/repro_torch/kernels/attention.py",
+        "src/repro_torch/core/pipeline.py",
+        "src/repro_torch/kernels/spmm.py",
+        "chip_smoke.py",
+    } <= checked
+    assert (PORT / "csrc" / "attention.cu").is_file()

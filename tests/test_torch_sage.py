@@ -20,6 +20,8 @@ from repro_torch.core import AutoSage, ScheduleCache
 from repro_torch.models.gnn import SAGE, norm_csr, sage_params_from_jax
 from repro_torch.sparse import hub_skew
 
+torch.set_num_threads(1)  # see test_torch_spmm.py
+
 IN_DIM, N_CLASSES = 24, 5
 
 

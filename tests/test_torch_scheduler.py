@@ -4,6 +4,7 @@ with the hand-kernel families probed through their plain versions
 cache files shared with the JAX package, estimates keyed off the
 PORTED_FROM table, and the device rule."""
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -30,6 +31,8 @@ from repro_torch.core import (
 from repro_torch.core import estimate as est
 from repro_torch.core import registry
 from repro_torch.sparse import erdos_renyi, hub_skew
+
+torch.set_num_threads(1)  # see test_torch_spmm.py
 
 CPU = torch.device("cpu")
 
@@ -158,3 +161,125 @@ def test_entry_neutral_ranking_reads_as_a_jax_donor(tmp_path, probe_kernels):
     assert entry["neutral"]["ranking"] == want
     assert jx_transfer.ranking_of(entry, base.full_name()) == want
     assert [r["name"] for r in want][0] == min(d.probe_ms, key=d.probe_ms.get)
+
+
+# ------------------------------------------------ pipeline-level attention
+def _attn_graph(kind):
+    if kind == "hub_skew":
+        return hub_skew(300, 3, 0.1, 40, seed=2).dedup_edges()
+    return erdos_renyi(300, 2e-2, seed=3).dedup_edges()  # balanced: row-ELL pipes apply
+
+
+def _jx_attn_pool(feat, hw=None):
+    return jx_registry.candidates(_jx_feat(feat), hw or JxHw.cpu(), include_pallas=True)
+
+
+@pytest.mark.parametrize("kind", ["hub_skew", "erdos_renyi"])
+def test_attention_candidates_and_estimates_match_jax(kind):
+    """The attention pool is the JAX package's, variant for variant through
+    PORTED_FROM, and each candidate is costed exactly as its twin under a
+    shared roofline profile."""
+    csr = _attn_graph(kind)
+    feat = InputFeatures.from_csr(csr, 32, "attention")
+    pool = registry.candidates(feat, HardwareSpec.cpu(), CPU, include_kernels=True)
+    jx_pool = _jx_attn_pool(feat)
+    assert [(registry.PORTED_FROM[v.name], v.knobs, v.is_baseline) for v in pool] == [
+        (v.name, v.knobs, v.is_baseline) for v in jx_pool]
+    assert {v.name for v in pool} >= {"pipe", "fused_attention_cuda", "ragged_attention_cuda"}
+    if kind == "erdos_renyi":
+        assert sum(v.name == "pipe" for v in pool) == 4
+    for v, twin in zip(pool, jx_pool):
+        mine = est.estimate(feat, HardwareSpec.cpu(), v.name, v.knobs)
+        theirs = jx_est.estimate(_jx_feat(feat), JxHw.cpu(), twin.name, twin.knobs)
+        assert mine == pytest.approx(theirs, rel=1e-12), v.full_name()
+    base = registry.baseline(feat, HardwareSpec.cpu(), CPU)
+    assert base.full_name() == jx_registry.baseline(_jx_feat(feat), JxHw.cpu()).full_name()
+
+
+def test_attention_gates_duplicates_and_layout_budget():
+    """Duplicate edges shut the fused kernels out, as in the JAX package;
+    the fused memory gates compare against the profile's layout budget:
+    512 MB on the CPU profile shuts them out of Reddit-0.25's features
+    (58,241 rows, max degree 52,755, 27.8 M edges), the H100's admits
+    them."""
+    multi = hub_skew(300, 3, 0.1, 40, seed=2)
+    feat = InputFeatures.from_csr(multi, 32, "attention")
+    assert feat.dup_edges
+    names = {v.name for v in registry.candidates(feat, HardwareSpec.cpu(), CPU, True)}
+    assert names == {v.name for v in _jx_attn_pool(feat)} == {"pipe"}
+    reddit = dataclasses.replace(
+        InputFeatures.from_csr(_attn_graph("hub_skew"), 256, "attention"),
+        n_rows=58_241, n_cols=58_241, nnz=27_777_678, avg_deg=477.0, deg_max=52_755.0,
+    )
+    assert HardwareSpec.cpu().layout_budget_bytes == 512e6
+    assert {v.name for v in registry.candidates(reddit, HardwareSpec.cpu(), CPU, True)} == {
+        v.name for v in _jx_attn_pool(reddit)} == {"pipe"}
+    on_card = {v.name for v in registry.candidates(reddit, HardwareSpec.h100(), CPU, True)}
+    assert on_card == {"pipe", "fused_attention_cuda", "ragged_attention_cuda"}
+
+
+def test_decide_attention_then_replay(tmp_path, probe_kernels, monkeypatch):
+    monkeypatch.setenv("AUTOSAGE_TELEMETRY_DIR", str(tmp_path / "telemetry"))
+    csr = _attn_graph("hub_skew")
+    path = str(tmp_path / "attn.json")
+    sage = _sage(path)
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((n, 16)).astype(np.float32))
+               for n in (csr.n_rows, csr.n_cols, csr.n_cols))
+    out = api.attention(csr, q, k, v, sage=sage, differentiable=False)
+    d = sage.decide_attention(csr, 16)
+    assert d.from_cache and d.op == "attention"
+    entry = sage.cache.get(sage.cache.keys_for_op("attention")[0])
+    assert entry["op"] == "attention" and entry["probe_ms"]
+    assert any("_cuda" in name for name in entry["estimates_ms"])
+    exp = jx_ref.csr_attention_ref(csr.rowptr, csr.colind, q.numpy(), k.numpy(), v.numpy())
+    np.testing.assert_allclose(out.numpy(), np.asarray(exp), rtol=1e-5, atol=1e-5)
+    replay = _sage(path, replay_only=True)
+    d_r = replay.decide_attention(csr, 16)
+    assert d_r.from_cache and d_r.choice == d.choice and not d_r.probe_ms
+    with pytest.raises(ReplayMiss):
+        replay.decide_attention(csr, 24)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        api.attention(csr, q, k, v, sage=sage)  # gradients: a later slice
+    lines = (tmp_path / "telemetry" / "attention_decisions.jsonl").read_text().splitlines()
+    records = [json.loads(line) for line in lines]
+    assert [r["from_cache"] for r in records] == [False, True, True]
+    assert records[0]["choice"] == d.choice and records[0]["probe_ms"] == entry["probe_ms"]
+
+
+def test_attention_cache_entries_load_both_ways(tmp_path, probe_kernels):
+    """op and stage_ms survive both directions: a port-written attention
+    entry reads in the JAX package, and a JAX-written one replays here."""
+    csr = _attn_graph("erdos_renyi")
+    path = str(tmp_path / "port.json")
+    d = _sage(path).decide_attention(csr, 16, stage_breakdown=True)
+    assert d.stage_ms
+    key = ScheduleCache(path=path).keys_for_op("attention")[0]
+    jx = JxCache(path=path).get(key)
+    assert jx["op"] == "attention" and jx["stage_ms"] == d.stage_ms
+    assert jx["choice"] == d.choice and jx["schema"] == 6
+    # the reverse: a JAX-layout entry pinning a composed pipe
+    jpath = str(tmp_path / "jax.json")
+    pipe = "pipe[sddmm=row_ell,spmm=gather_segsum]"
+    JxCache(path=jpath).put(key, {"choice": pipe, "probe_ms": {}, "estimates_ms": {},
+                                  "op": "attention", "stage_ms": {"sddmm": 1.5}})
+    d_r = _sage(jpath, replay_only=True).decide_attention(csr, 16)
+    assert d_r.choice == pipe and d_r.variant.full_name() == pipe
+    assert d_r.stage_ms == {"sddmm": 1.5}
+
+
+def test_span_totals_split_a_decide(tmp_path, probe_kernels, monkeypatch):
+    """With AUTOSAGE_OBS set, the flight recorder's span totals split an
+    attention decide into its stages; without it nothing is recorded."""
+    from repro_torch.core import obs
+
+    csr = _attn_graph("erdos_renyi")
+    before = obs.span_totals_ms()
+    _sage(str(tmp_path / "off.json")).decide_attention(csr, 16)
+    assert obs.span_totals_ms() == before
+    monkeypatch.setenv("AUTOSAGE_OBS", "1")
+    _sage(str(tmp_path / "on.json")).decide_attention(csr, 16)
+    after = obs.span_totals_ms()
+    assert {"decide", "features", "estimate", "probe", "guardrail"} <= set(after)
+    grew = {k: v - before.get(k, 0.0) for k, v in after.items()}
+    assert grew["decide"] >= grew["probe"] > 0

@@ -103,6 +103,8 @@ def test_csr_methods_match():
     _assert_same(j.row_slice(rows), p.row_slice(rows))
     _assert_same(j.dedup_edges(), p.dedup_edges())
     assert j.has_duplicate_edges() == p.has_duplicate_edges()
+    assert not j.dedup_edges().has_duplicate_edges()
+    assert not p.dedup_edges().has_duplicate_edges()
 
 
 def test_int32_guard_matches():

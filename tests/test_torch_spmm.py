@@ -20,6 +20,12 @@ from repro.sparse import build_merge_path
 from repro_torch.kernels import ref as pref
 from repro_torch.kernels import spmm as pk
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and torch's default pool (one thread per core in every worker)
+# oversubscribes the cores; tests elsewhere that time kernels by wall
+# clock (tests/test_drift.py) then misread their probes.
+torch.set_num_threads(1)
+
 F = 32
 
 
