@@ -61,14 +61,47 @@ order; any failure raises and the script exits non-zero:
    through the cache, each forward must launch its kernel and match the
    reference, and the two outputs must be equal bit for bit.
 
-The main path is every forward of phases 3, 4 and 6, through the entry
-points a user calls: decide (probes included) + two forwards, the
-replay forward, and each pinned forward. The launch counters of every
-kernel are set to 0 just before each of these runs and read just after
-it; a kernel's ``launches`` is the sum over them, and every kernel must
-have launched. The host/device breakdown of a warm forward is timed
-outside these runs and is not counted. The second-to-last line is the
-kernels JSON, the last line the result JSON.
+7. SDDMM kernels against their plain versions, on edge cases (row blocks
+   with only the dummy slot, explicit-zero edges, a hub over many merge
+   tiles, partial last merge tiles; F = 16, 41 and 256) and at the
+   training slice's shapes (the deduplicated Reddit-0.25 graph, D = 256,
+   phase 5's 8x8 mask tables plus a 16x8 blocking; merge tile_slots 8
+   and 16), same tolerance. Live tiles are equal bit for bit across
+   dense-W, ragged and merge; padded, dummy and tail tiles are +0.0; a
+   second launch gives the same bits. Times of each kernel, its plain
+   version and torch.sparse.sampled_addmm on the same pattern (the one
+   PyTorch call that computes the same function; the port never calls
+   it) beside the bound (the mask tiles and index arrays read once, X
+   and Y read once, the tiles written once; 2 * nnz * D FLOPs).
+8. SAGE training: three full-graph SGD steps (train_gnn.train_full's
+   step: lr 0.05, mean log-softmax NLL) of the phase-3 model on
+   Reddit-0.25 with train_gnn.make_data's features and labels, through
+   AutoSage: the first step decides spmm and spmm_bwd_b at F = 256 and
+   F = 41, and its weight gradients are held against the sage=None
+   reference (the explicit backward oracles) on the card within
+   1e-3 * |ref| + 1e-3 * max|ref|. A fresh replay-only AutoSage replays
+   the four decisions and gives the same gradients bit for bit.
+9. GAT training: the phase-6 layer, loss 0.5 * ||out||^2, SGD at
+   lr 0.05 / n_rows (the loss sums over every node). The first step's
+   wq, wk and wv gradients are held against the sage=None reference
+   (csr_attention_bwd_ref, chunked) on the card, then two more SGD
+   steps; a replay-only AutoSage replays all six decisions
+   (attention and attention_bwd_e/_p/_q/_k/_v) with bit-equal
+   gradients. Then the SDDMM families are pinned in turn for
+   attention_bwd_e/_p through the cache (ragged and merge-path on
+   Reddit-0.25; dense-W, which its memory gate shuts out there, on
+   products_like(0.02, seed=0).dedup_edges() in a leg of its own): each
+   pinned step must launch its kernel and match the reference.
+
+The main path is every forward of phases 3, 4 and 6 and every training
+step of phases 8 and 9, through the entry points a user calls: decide
+(probes included) + two forwards or three steps, the replay run, and
+each pinned run. The launch counters of every kernel are set to 0 just
+before each of these runs and read just after it; a kernel's
+``launches`` is the sum over them, and every kernel must have launched.
+The host/device breakdown of a warm forward is timed outside these runs
+and is not counted. Peak device memory is printed per phase. The
+second-to-last line is the kernels JSON, the last line the result JSON.
 """
 from __future__ import annotations
 
@@ -100,13 +133,26 @@ REPLACES = {
     "spmm_merge_path": "src/repro/kernels/spmm_pallas.py:220",
     "fused_csr_attention": "src/repro/kernels/attention_pallas.py:60",
     "fused_ragged_attention": "src/repro/kernels/attention_pallas.py:141",
+    "sddmm_block_ell": "src/repro/kernels/sddmm_pallas.py:53",
+    "sddmm_ragged_ell": "src/repro/kernels/sddmm_pallas.py:109",
+    "sddmm_merge_path": "src/repro/kernels/sddmm_pallas.py:199",
 }
-KERNEL_SOURCES = ("spmm", "attention")  # src/repro_torch/csrc/<name>.cu
+KERNEL_SOURCES = ("spmm", "attention", "sddmm")  # src/repro_torch/csrc/<name>.cu
+GRAD_RTOL = 1e-3  # training gradients: long fp32 chains in another order
+LR = 0.05  # train_gnn's SGD step
+SDDMM_FAMILY_KERNEL = {
+    "ragged_ell_cuda": "sddmm_ragged_ell",
+    "merge_path_cuda": "sddmm_merge_path",
+    "block_ell_cuda": "sddmm_block_ell",
+}
 D_ATTN = 256  # configs/gnn_sage width: the GAT layer's head dimension
 ATTN_FAMILY_KERNEL = {
     "fused_attention_cuda": "fused_csr_attention",
     "ragged_attention_cuda": "fused_ragged_attention",
 }
+# the dense-W SDDMM leg of phase 9: OGBN-Products' average degree at a
+# node count whose dense-W table its memory gate admits (48,980 nodes)
+PRODUCTS_SCALE = 0.02
 FAMILIES = ("ragged_ell_cuda", "block_ell_cuda", "merge_path_cuda", "hub_ragged_cuda")
 FAMILY_KERNEL = {
     "ragged_ell_cuda": "spmm_ragged_ell",
@@ -127,23 +173,29 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def check_close(name, got, want) -> float:
-    """Raise unless got ~= want within the order-only tolerance; returns
-    max |got - want|."""
+def check_close(name, got, want, rtol=RTOL) -> float:
+    """Raise unless got ~= want within rtol * |want| + rtol * max|want|;
+    returns max |got - want|. Works in chunks of elements, so a 13.6 GB
+    tile table needs no full-size temporaries."""
     import torch
 
     if got.shape != want.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
-    if not torch.isfinite(got).all():
-        raise AssertionError(f"{name}: non-finite output")
-    err = (got - want).abs()
-    scale = float(want.abs().max()) if want.numel() else 0.0
-    bad = err > RTOL * want.abs() + RTOL * scale
-    if bool(bad.any()):
-        raise AssertionError(
-            f"{name}: {int(bad.sum())} entries outside tolerance, max err {float(err.max())}"
-        )
-    return float(err.max()) if err.numel() else 0.0
+    g, w = got.reshape(-1), want.reshape(-1)
+    step = 1 << 26
+    chunks = range(0, g.numel(), step)
+    scale = max((float(w[i:i + step].abs().max()) for i in chunks), default=0.0)
+    worst, n_bad = 0.0, 0
+    for i in chunks:
+        gc, wc = g[i:i + step], w[i:i + step]
+        if not bool(torch.isfinite(gc).all()):
+            raise AssertionError(f"{name}: non-finite output")
+        err = (gc - wc).abs()
+        n_bad += int((err > rtol * wc.abs() + rtol * scale).sum())
+        worst = max(worst, float(err.max()))
+    if n_bad:
+        raise AssertionError(f"{name}: {n_bad} entries outside tolerance, max err {worst}")
+    return worst
 
 
 def check_equal(name, a, b) -> None:
@@ -153,29 +205,31 @@ def check_equal(name, a, b) -> None:
         raise AssertionError(f"{name}: not bit-equal, max diff {float((a - b).abs().max())}")
 
 
-def reset_launches() -> None:
+def _kernel_modules():
     from repro_torch.kernels import attention as ka
+    from repro_torch.kernels import sddmm as ksd
     from repro_torch.kernels import spmm as ks
 
-    ks.reset_launches()
-    ka.reset_launches()
+    return ks, ka, ksd
+
+
+def reset_launches() -> None:
+    for mod in _kernel_modules():
+        mod.reset_launches()
 
 
 def launches() -> dict:
-    from repro_torch.kernels import attention as ka
-    from repro_torch.kernels import spmm as ks
-
-    return {**ks.LAUNCHES, **ka.LAUNCHES}
+    return {k: v for mod in _kernel_modules() for k, v in mod.LAUNCHES.items()}
 
 
-def counted(label, fn, totals, device):
-    """fn() under torch.no_grad with every launch count set to 0 just
-    before it and read just after; the counts join the main path's
-    ``totals``. Returns (fn's result, the counts)."""
+def counted(label, fn, totals, device, grad=False):
+    """fn() (under torch.no_grad unless ``grad``) with every launch count
+    set to 0 just before it and read just after; the counts join the main
+    path's ``totals``. Returns (fn's result, the counts)."""
     import torch
 
     reset_launches()
-    with torch.no_grad():
+    with torch.enable_grad() if grad else torch.no_grad():
         out = fn()
     sync(device)
     got = launches()
@@ -595,18 +649,14 @@ def attention_edge_cases(device) -> None:
         f"non-empty blocks, single hub over {HUB_N // 8} slots, hub_skew; D=64,256: ok")
 
 
-def attention_kernel_phase(graph, device, reps: int) -> dict:
+def attention_kernel_phase(graph, lay, device, reps: int) -> dict:
     """Phase 5 at the slice's shapes: the deduplicated Reddit-0.25 graph,
-    D = 256. Returns the kernel records."""
+    D = 256, on its uploaded 8x8 layouts ``lay``. Returns the kernel
+    records."""
     from repro_torch.core.probe import time_callable
     from repro_torch.core.registry import _dev
     from repro_torch.kernels import baselines as kb
 
-    t0 = time.perf_counter()
-    lay = _attn_layouts(graph, device)
-    sync(device)
-    log(f"attention layouts 8x8: nrb={lay['nrb']} W={lay['width']} slots={lay['n_slots']} "
-        f"({time.perf_counter() - t0:.1f} s host conversion + upload)")
     q, k, v = _qkv(graph, D_ATTN, device, seed=7)
     errs = check_attention(f"reddit D={D_ATTN}", graph, lay, q, k, v, device)
     log(f"reddit-{SCALE} dedup D={D_ATTN}: max |kernel - plain| {json.dumps(errs)}; "
@@ -636,7 +686,7 @@ def attention_kernel_phase(graph, device, reps: int) -> dict:
     rag = records["fused_ragged_attention"]
     log("fused_ragged_attention s per live slot beyond the bound: "
         f"{(rag['ms'] - rag['bound_ms']) * 1e-3 / lay['n_slots']:.4e}")
-    del lay, aux
+    del aux
     _empty_cache(device)
     return records
 
@@ -744,29 +794,614 @@ def gat_phase(graph, device, workdir: Path) -> dict:
     return totals
 
 
+# ------------------------------------------------------------ phase 7
+def _sddmm_layouts(csr, device, rb, bc, attn_lay=None) -> dict:
+    """Uploaded SDDMM tables of a structural CSR at (rb, bc): dense-W
+    (colblk, mask), ragged (slot_rowblk, slot_colblk, mask) and blkptr.
+    ``attn_lay``: phase 5's uploaded 8x8 layouts of the same deduplicated
+    graph, whose tiles already are the 0/1 mask (no second conversion)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.sparse import csr_to_block_ell
+
+    if attn_lay is not None:
+        blkptr, slot_colblk, rmask = attn_lay["ragged"]
+        colblk, dmask = attn_lay["dense"]
+        nslots = torch.diff(blkptr.long())
+        slot_rowblk = torch.repeat_interleave(
+            torch.arange(nslots.shape[0], device=device, dtype=torch.int32),
+            torch.clamp(nslots, min=1))
+        return {"ragged": (slot_rowblk, slot_colblk, rmask), "dense": (colblk, dmask),
+                "blkptr": blkptr, "nslots": nslots.cpu().numpy()}
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    bell = csr_to_block_ell(csr.structural(), rb=rb, bc=bc)
+    rag = bell.to_ragged()
+    out = {
+        "ragged": (up(rag.slot_rowblk), up(rag.slot_colblk),
+                   up(np.minimum(rag.slot_vals, 1.0, out=rag.slot_vals))),
+        "dense": (up(bell.colblk), up(np.minimum(bell.vals, 1.0, out=bell.vals))),
+        "blkptr": up(rag.blkptr), "nslots": bell.nslots,
+    }
+    del bell, rag
+    return out
+
+
+def _merge_tables(lay, ts, device) -> tuple:
+    """The merge-path SDDMM operands at tile_slots ``ts``, cut from the
+    uploaded ragged tables on the device: (blkptr, tail-padded
+    slot_colblk, tile_rowblk, tile_mask), n_slots."""
+    import torch
+
+    from repro_torch.sparse.merge import merge_tiling
+
+    _, slot_colblk, mask = lay["ragged"]
+    blkptr = lay["blkptr"]
+    n_slots, rb, bc = mask.shape
+    tiling = merge_tiling(blkptr.cpu().numpy(), n_slots, ts)
+    n_tiles = tiling["tile_rowblk"].shape[0]
+    pad = n_tiles * ts - n_slots
+    colblk = torch.cat([slot_colblk, slot_colblk.new_zeros(pad)])
+    tmask = torch.cat([mask, mask.new_zeros((pad, rb, bc))]).reshape(n_tiles, ts, rb, bc)
+    return (blkptr, colblk, torch.from_numpy(tiling["tile_rowblk"]).to(device), tmask), n_slots
+
+
+def _no_negative_zero(name, t) -> None:
+    import torch
+
+    if bool((torch.signbit(t) & (t == 0)).any()):
+        raise AssertionError(f"{name}: a -0.0 where the rule writes +0.0")
+
+
+def _sddmm_run_all(lay, x, y, device, merge_ts):
+    """label -> (kernel name, kernel call, plain call, operands read)."""
+    from repro_torch.kernels import sddmm as ksd
+
+    ragged, dense = lay["ragged"], lay["dense"]
+    out = {
+        "sddmm_ragged_ell": ("sddmm_ragged_ell",
+                             lambda: ksd.sddmm_ragged_ell(*ragged, x, y),
+                             lambda: ksd.sddmm_ragged_ell_plain(*ragged, x, y), ragged),
+        "sddmm_block_ell": ("sddmm_block_ell",
+                            lambda: ksd.sddmm_block_ell(*dense, x, y),
+                            lambda: ksd.sddmm_block_ell_plain(*dense, x, y), dense),
+    }
+    for ts in merge_ts:
+        tables, _ = _merge_tables(lay, ts, device)
+        out[f"sddmm_merge_path[ts={ts}]"] = (
+            "sddmm_merge_path",
+            lambda t=tables: ksd.sddmm_merge_path(*t, x, y),
+            lambda t=tables: ksd.sddmm_merge_path_plain(*t, x, y), tables)
+    return out
+
+
+def check_sddmm(tag, lay, x, y, device, merge_ts=()) -> dict:
+    """Each SDDMM kernel against its plain version; twice bit-equal; the
+    live dense-W and merge tiles bit-equal to the ragged ones; padded,
+    dummy and tail tiles all +0.0 and no masked cell -0.0. One output at a
+    time beside the ragged one (Reddit's dense-W tiles take 13.6 GB).
+    Returns max errors."""
+    import torch
+
+    from repro_torch.kernels import sddmm as ksd
+
+    errs = {}
+    slot_rowblk, slot_colblk, rmask = lay["ragged"]
+    blkptr, nslots = lay["blkptr"], lay["nslots"]
+    ragged = ksd.sddmm_ragged_ell(slot_rowblk, slot_colblk, rmask, x, y)
+    sync(device)
+    errs["sddmm_ragged_ell"] = check_close(
+        f"{tag} sddmm_ragged_ell", ragged, ksd.sddmm_ragged_ell_plain(*lay["ragged"], x, y))
+    check_equal(f"{tag} sddmm_ragged_ell run twice", ragged,
+                ksd.sddmm_ragged_ell(slot_rowblk, slot_colblk, rmask, x, y))
+    _no_negative_zero(f"{tag} sddmm_ragged_ell", ragged)
+    dummy = torch.from_numpy((nslots == 0).nonzero()[0]).to(device)
+    if bool(ragged[blkptr.long()[dummy]].any()):
+        raise AssertionError(f"{tag}: a dummy slot's tile is not all-zero")
+    n_slots, rb, bc = rmask.shape
+
+    colblk, dmask = lay["dense"]
+    nrb, w = colblk.shape
+    dense = ksd.sddmm_block_ell(colblk, dmask, x, y)
+    sync(device)
+    errs["sddmm_block_ell"] = check_close(
+        f"{tag} sddmm_block_ell", dense, ksd.sddmm_block_ell_plain(colblk, dmask, x, y))
+    pos = torch.arange(n_slots, device=device) - blkptr.long()[slot_rowblk.long()]
+    live = slot_rowblk.long() * w + pos
+    flat = dense.view(nrb * w, rb, bc)
+    check_equal(f"{tag} dense-W live tiles vs ragged", flat[live], ragged)
+    flat.view(nrb * w, -1).index_fill_(0, live, 0.0)
+    if bool(dense.any()) or bool(torch.signbit(dense).any()):
+        raise AssertionError(f"{tag}: a padded dense-W tile is not all +0.0")
+    del dense, flat
+
+    for ts in merge_ts:
+        tables, _ = _merge_tables(lay, ts, device)
+        merged = ksd.sddmm_merge_path(*tables, x, y)
+        sync(device)
+        errs[f"sddmm_merge_path[ts={ts}]"] = check_close(
+            f"{tag} sddmm_merge_path ts={ts}", merged, ksd.sddmm_merge_path_plain(*tables, x, y))
+        check_equal(f"{tag} merge ts={ts} run twice", merged, ksd.sddmm_merge_path(*tables, x, y))
+        mflat = merged.view(-1, rb, bc)
+        check_equal(f"{tag} merge ts={ts} live tiles vs ragged", mflat[:n_slots], ragged)
+        tail = mflat[n_slots:]
+        if bool(tail.any()) or bool(torch.signbit(tail).any()):
+            raise AssertionError(f"{tag}: a merge tail tile is not all +0.0")
+        del tables, merged, mflat, tail
+    del ragged
+    _empty_cache(device)
+    return errs
+
+
+def sddmm_edge_cases(device) -> None:
+    """Small graphs that hit the SDDMM layouts' corners, and explicit-zero
+    edges through the registry's runners."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import registry
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sddmm as ksd
+    from repro_torch.sparse import CSR, hub_skew, single_hub
+
+    rng = np.random.default_rng(5)
+    deg = np.r_[rng.integers(1, 6, 8), np.zeros(24, np.int64), rng.integers(1, 6, 21)]
+    val = rng.standard_normal(int(deg.sum())).astype(np.float32)
+    val[::4] = 0.0  # explicit zeros: the mask keeps them
+    empty = CSR(np.r_[0, np.cumsum(deg)].astype(np.int32),
+                rng.integers(0, 70, int(deg.sum())).astype(np.int32), val, deg.size, 70)
+    hub = single_hub(HUB_N, nnz_frac=0.9, seed=1)
+    skew = hub_skew(3000, 4, 0.05, 300, seed=2)
+    for tag, csr in (("empty-blocks", empty), ("single-hub", hub), ("hub-skew", skew)):
+        for rb in (8, 16):
+            lay = _sddmm_layouts(csr, device, rb, 8)
+            if rb == 8:
+                partial = [ts for ts in (3, 8, 16) if lay["ragged"][2].shape[0] % ts]
+                if not partial:
+                    raise AssertionError(f"{tag}: no case with a partial last tile")
+            for f in (16, 41, 256):
+                g = torch.Generator().manual_seed(f)
+                x = torch.randn(csr.n_rows, f, generator=g).to(device)
+                y = torch.randn(csr.n_cols, f, generator=g).to(device)
+                check_sddmm(f"{tag} rb={rb} F={f}", lay, x, y, device,
+                            merge_ts=(3, 8, 16) if rb == 8 else ())
+        del lay
+    # explicit-zero edges keep <X_i, Y_j> through every registry family
+    rp, ci = (torch.from_numpy(a).to(device) for a in (empty.rowptr, empty.colind))
+    x = torch.randn(empty.n_rows, 41, generator=torch.Generator().manual_seed(3)).to(device)
+    y = torch.randn(empty.n_cols, 41, generator=torch.Generator().manual_seed(4)).to(device)
+    want = ref.sddmm_ref(rp, ci, x, y)
+    runners = {
+        "ragged": registry._build_sddmm(ksd.sddmm_ragged_ell,
+                                        ("slot_rowblk", "slot_colblk", "mask"))(
+            registry._prep_sddmm_ragged(empty, 8, 8), device),
+        "dense-W": registry._build_sddmm(ksd.sddmm_block_ell, ("colblk", "mask"))(
+            registry._prep_sddmm_dense(empty, 8, 8), device),
+        "merge": registry._build_sddmm(
+            ksd.sddmm_merge_path, ("blkptr", "slot_colblk", "tile_rowblk", "tile_mask"))(
+            registry._prep_sddmm_merge(empty, 8), device),
+    }
+    zero = torch.from_numpy(val == 0).to(device)
+    for name, run in runners.items():
+        got = run(x, y)
+        check_close(f"explicit-zero edges {name}", got, want)
+        if not bool((got[zero] != 0).all()):
+            raise AssertionError(f"explicit-zero edges {name}: an edge lost its dot product")
+    log("SDDMM edge cases: empty row blocks (dummy slots), explicit-zero edges, single hub "
+        "over many merge tiles, partial last tiles (tile_slots 3/8/16), blockings 8x8/16x8 "
+        "at F=16,41,256: ok")
+
+
+def sddmm_kernel_phase(graph, held: dict, device, reps: int) -> dict:
+    """Phase 7 at the slice's shapes: the deduplicated Reddit-0.25 graph,
+    D = 256; 8x8 on phase 5's tables (``held["attn_lay"]``, freed after
+    the 8x8 pass so the 16x8 tables fit beside the outputs; merge
+    tile_slots 8 and 16), then 16x8. Returns the kernel records (8x8 and
+    tile_slots 8 on top, the others under "variants")."""
+    import torch
+
+    from repro_torch.core.probe import time_callable
+
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn(graph.n_rows, D_ATTN, generator=g).to(device)
+    y = torch.randn(graph.n_cols, D_ATTN, generator=g).to(device)
+    a_lib = torch.sparse_csr_tensor(
+        torch.from_numpy(graph.rowptr).to(device), torch.from_numpy(graph.colind).to(device),
+        torch.ones(graph.nnz, device=device), size=(graph.n_rows, graph.n_cols),
+        check_invariants=False)
+    lib_ms = time_callable(lambda: torch.sparse.sampled_addmm(a_lib, x, y.t(), beta=0.0),
+                           device, iters=reps).median_ms
+    del a_lib
+    log(f"torch.sparse.sampled_addmm D={D_ATTN}: {lib_ms} ms")
+    io_bytes = (graph.n_rows + graph.n_cols) * D_ATTN * 4  # X and Y read once
+    flops = 2.0 * graph.nnz * D_ATTN
+    records = {}
+    for rb, bc in ((8, 8), (16, 8)):
+        t0 = time.perf_counter()
+        lay = _sddmm_layouts(graph, device, rb, bc, held.pop("attn_lay") if rb == 8 else None)
+        sync(device)
+        n_slots, w = lay["ragged"][2].shape[0], lay["dense"][0].shape[1]
+        log(f"SDDMM layouts rb={rb} bc={bc}: slots={n_slots} W={w} "
+            f"({time.perf_counter() - t0:.1f} s{' reused from phase 5' if rb == 8 else ''})")
+        merge_ts = (8, 16) if rb == 8 else ()
+        errs = check_sddmm(f"reddit rb={rb}", lay, x, y, device, merge_ts)
+        log(f"reddit-{SCALE} dedup rb={rb} bc={bc} D={D_ATTN}: max |kernel - plain| "
+            f"{json.dumps(errs)}; live tiles bit-equal across layouts; padded/dummy/tail "
+            "tiles +0.0; second launch bit-equal")
+        for label, (name, kern, plain, arrays) in _sddmm_run_all(lay, x, y, device,
+                                                                 merge_ts).items():
+            out_bytes = arrays[-1].numel() * 4  # the tiles, one per mask cell
+            byts = sum(a.numel() * a.element_size() for a in arrays) + io_bytes + out_bytes
+            rec = {
+                "max_abs_err": errs[label],
+                "ms": time_callable(kern, device, iters=reps).median_ms,
+                "plain_ms": time_callable(plain, device, iters=1).median_ms,
+                "bound_ms": max(byts / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3,
+                "bound_by": "bytes" if byts / HBM_BYTES_PER_S >= flops / FP32_FLOPS
+                else "operations",
+            }
+            ts = int(label.split("=")[1].rstrip("]")) if "ts=" in label else 8
+            if (rb, ts) == (8, 8):
+                records[name] = {
+                    "name": name, "route": "cuda", "source": "src/repro_torch/csrc/sddmm.cu",
+                    "replaces": REPLACES[name], "launches": 0, **rec,
+                    "library_ms": lib_ms, "variants": {},
+                }
+            else:
+                key = f"tile_slots={ts}" if name == "sddmm_merge_path" else f"rb={rb},bc={bc}"
+                records[name]["variants"][key] = rec
+            log(f"  {label} rb={rb} bc={bc} D={D_ATTN}: {json.dumps(rec)}")
+        del kern, plain, arrays  # the loop's last tables
+        if rb == 8:
+            rec = records["sddmm_ragged_ell"]
+            log("sddmm_ragged_ell s per live slot beyond the bound: "
+                f"{(rec['ms'] - rec['bound_ms']) * 1e-3 / n_slots:.4e}")
+        del lay
+        _empty_cache(device)
+    return records
+
+
+# ------------------------------------------------------- phases 8 & 9
+def _peak_reset(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _peak(label, device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        log(f"{label}: peak device memory "
+            f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
+
+
+def _grads(model) -> list:
+    return [p.grad.detach().clone() for p in model.parameters()]
+
+
+def _check_grads(tag, model, got, want) -> float:
+    names = [n for n, _ in model.named_parameters()]
+    return max(check_close(f"{tag} grad {n}", g, w, GRAD_RTOL)
+               for n, g, w in zip(names, got, want))
+
+
+def _decisions(path, probes=False) -> dict:
+    """op|F -> choice of every entry of a schedule-cache file (with
+    ``probes``: the choice and the probed ms of each candidate)."""
+    out = {}
+    for key, entry in json.loads(Path(path).read_text()).items():
+        _, _, f, op, _ = key.split("|")
+        out[f"{op}|{f}"] = ({"choice": entry["choice"], "probe_ms": entry["probe_ms"]}
+                            if probes else entry["choice"])
+    return out
+
+
+def _check_replayed(tag, replay, path, graph_of) -> None:
+    """Every decision cached in ``path`` replays from the replay-only
+    AutoSage with the same choice; ``graph_of(op)`` is the graph the op
+    runs on (the forward graph or its transpose)."""
+    for key, choice in _decisions(path).items():
+        op, f = key.split("|")
+        f = int(f[2:])
+        g = graph_of(op)
+        d = replay.decide_attention(g, f) if op == "attention" else replay.decide(g, f, op)
+        if not d.from_cache or d.choice != choice:
+            raise AssertionError(f"{tag} replay of {key}: {d.choice} != {choice}")
+
+
+def _train_step(model, loss_fn, totals, device, label, update=True, lr=LR):
+    """One counted training step (loss, backward, and SGD at ``lr`` when
+    ``update``); returns (loss, seconds)."""
+    from repro_torch.train_gnn import sgd_step
+
+    t0 = time.perf_counter()
+
+    def step():
+        if update:
+            return sgd_step(model, loss_fn, lr)
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn()
+        loss.backward()
+        return float(loss.detach())
+
+    loss, _ = counted(label, step, totals, device, grad=True)
+    sync(device)
+    if not math.isfinite(loss):
+        raise AssertionError(f"{label}: loss {loss}")
+    return loss, time.perf_counter() - t0
+
+
+def sage_train_phase(graph, device, workdir: Path) -> dict:
+    """Phase 8. Returns the launch counts summed over its counted runs."""
+    import copy
+
+    import torch
+
+    from repro_torch.core import AutoSage, ScheduleCache, registry
+    from repro_torch.models.gnn import SAGE, norm_csr
+    from repro_torch.train_gnn import make_data, nll_loss
+
+    _peak_reset(device)
+    feats, labels = make_data(graph, N_CLASSES, IN_DIM, seed=0)
+    x, y = torch.from_numpy(feats).to(device), torch.from_numpy(labels).to(device)
+    model = SAGE(IN_DIM, N_CLASSES, seed=0, device=device)
+    ref_model = copy.deepcopy(model)
+    t0 = time.perf_counter()
+    loss = nll_loss(ref_model(graph, x), y)
+    loss.backward()
+    ref_loss = loss.detach()
+    sync(device)
+    ref_grads = _grads(ref_model)
+    del ref_model
+    log(f"SAGE reference step (sage=None, explicit backward oracles): loss "
+        f"{float(ref_loss):.6f}, {time.perf_counter() - t0:.2f} s")
+    totals: dict = {}
+    path = workdir / "sage_train.json"
+    sage = AutoSage(device=device, cache=ScheduleCache(path=str(path)))
+
+    def loss_fn(s):
+        return lambda: nll_loss(model(graph, x, sage=s), y)
+
+    losses, secs = [], []
+    for i in range(3):
+        loss, dt = _train_step(model, loss_fn(sage), totals, device, f"SAGE train step {i + 1}")
+        losses.append(loss)
+        secs.append(dt)
+        if i == 0:
+            err = _check_grads("SAGE step 1", model, _grads(model), ref_grads)
+            log(f"SAGE step 1: loss {loss:.6f} (reference {float(ref_loss):.6f}); max "
+                f"|grad - reference| {err:.3e}")
+    log(f"SAGE training losses {losses}; step seconds {[round(t, 3) for t in secs]} "
+        "(step 1 decides, probes and prepares)")
+    choices = _decisions(path)
+    want = {f"{op}|F={f}" for op in ("spmm", "spmm_bwd_b") for f in (256, N_CLASSES)}
+    if set(choices) != want:
+        raise AssertionError(f"SAGE decisions {sorted(choices)} != {sorted(want)}")
+    log(f"SAGE training decisions: {json.dumps(_decisions(path, probes=True))}")
+    _train_step(model, loss_fn(sage), totals, device, "SAGE step with the deciding AutoSage",
+                update=False)
+    grads = _grads(model)
+    del sage
+    _empty_cache(device)
+    replay = AutoSage(device=device, cache=ScheduleCache(path=str(path), replay_only=True))
+    _train_step(model, loss_fn(replay), totals, device, "SAGE replay step", update=False)
+    for n, g_r, g in zip([n for n, _ in model.named_parameters()], _grads(model), grads):
+        check_equal(f"SAGE replayed grad {n}", g_r, g)
+    a = norm_csr(graph)
+    _check_replayed("SAGE", replay, path,
+                    lambda op: a if op == "spmm" else a.transpose_with_perm()[0])
+    log("replay-only AutoSage: the four SAGE decisions replayed; gradients bit-equal")
+    del replay
+    registry.clear_layout_memo()
+    _empty_cache(device)
+    _peak("phase 8 (SAGE training)", device)
+    log(f"SAGE training launches (sum of the counted runs): {json.dumps(totals)}")
+    return totals
+
+
+GAT_OPS = ("attention", "attention_bwd_e", "attention_bwd_p", "attention_bwd_q",
+           "attention_bwd_k", "attention_bwd_v")
+
+
+def _gat_loss(model, graph, x, sage):
+    return lambda: 0.5 * (model(graph, x, sage=sage) ** 2).sum()
+
+
+def _pinned_sddmm_step(tag, family, model, graph, x, ref_grads, path, totals, device) -> None:
+    """A replay-only step with attention_bwd_e/_p pinned to ``family``
+    (8x8, tile_slots 8) in a copy of ``path``: its kernel must launch for
+    both ops and the weight gradients must match the reference."""
+    from repro_torch.core import AutoSage, HardwareSpec, InputFeatures, ScheduleCache, registry
+
+    entries = json.loads(Path(path).read_text())
+    pinned_path = Path(path).with_name(f"pinned_{family}_{Path(path).name}")
+    cache = ScheduleCache(path=str(pinned_path))
+    feat = InputFeatures.from_csr(graph.structural(), D_ATTN, "attention_bwd_e")
+    names = [v.full_name() for v in registry.candidates(feat, HardwareSpec.current(device), device)
+             if v.name == family and v.knobs.get("rb") == 8
+             and v.knobs.get("tile_slots", 8) == 8]
+    if len(names) != 1:
+        raise AssertionError(f"{tag} {family}: candidates {names}")
+    for key, entry in entries.items():
+        if key.split("|")[3] in ("attention_bwd_e", "attention_bwd_p"):
+            entry = {**entry, "choice": names[0]}
+        cache.put(key, entry)
+    pinned = AutoSage(device=device, cache=ScheduleCache(path=str(pinned_path),
+                                                         replay_only=True))
+    model.zero_grad(set_to_none=True)
+    t0 = time.perf_counter()
+    _, got = counted(f"{tag} {family} pinned step", lambda: _backward(model, graph, x, pinned),
+                     totals, device, grad=True)
+    kernel = SDDMM_FAMILY_KERNEL[family]
+    if got[kernel] < 2:
+        raise AssertionError(f"{tag} {family}: {kernel} launched {got[kernel]} times")
+    err = _check_grads(f"{tag} {family} pinned", model, _grads(model), ref_grads)
+    log(f"pinned {family} for attention_bwd_e/_p ({tag}): {kernel} +{got[kernel]} launches, "
+        f"max |grad - reference| {err:.3e}, {time.perf_counter() - t0:.1f} s incl. prepare")
+
+
+def _backward(model, graph, x, sage):
+    loss = _gat_loss(model, graph, x, sage)()
+    loss.backward()
+    return float(loss.detach())
+
+
+def gat_train_phase(graph, device, workdir: Path) -> dict:
+    """Phase 9. Returns the launch counts summed over its counted runs."""
+    import copy
+
+    import torch
+
+    from repro_torch.core import AutoSage, ScheduleCache, registry
+    from repro_torch.models.gnn import GAT
+    from repro_torch.sparse import products_like
+
+    _peak_reset(device)
+    totals: dict = {}
+
+    def reference(model, graph, x):
+        ref_model = copy.deepcopy(model)
+        t0 = time.perf_counter()
+        loss = _backward(ref_model, graph, x, None)
+        sync(device)
+        return ref_model, loss, time.perf_counter() - t0
+
+    model = GAT(IN_DIM, D_ATTN, seed=0, device=device)
+    x = torch.randn(graph.n_rows, IN_DIM, generator=torch.Generator().manual_seed(2)).to(device)
+    ref_model, ref_loss, dt = reference(model, graph, x)
+    ref_grads = _grads(ref_model)
+    log(f"GAT reference step (sage=None, csr_attention_bwd_ref): loss {ref_loss:.6f}, "
+        f"{dt:.2f} s")
+    path = workdir / "gat_train.json"
+    sage = AutoSage(device=device, cache=ScheduleCache(path=str(path)))
+    losses, secs = [], []
+    for i in range(3):
+        loss, dt = _train_step(model, _gat_loss(model, graph, x, sage), totals, device,
+                               f"GAT train step {i + 1}", lr=LR / graph.n_rows)
+        losses.append(loss)
+        secs.append(dt)
+        if i == 0:
+            err = _check_grads("GAT step 1", model, _grads(model), ref_grads)
+            log(f"GAT step 1: loss {loss:.6f} (reference {ref_loss:.6f}); max "
+                f"|grad - reference| {err:.3e}")
+    log(f"GAT training losses {losses}; step seconds {[round(t, 3) for t in secs]} "
+        "(step 1 decides, probes and prepares)")
+    choices = _decisions(path)
+    if sorted(k.split("|")[0] for k in choices) != sorted(GAT_OPS):
+        raise AssertionError(f"GAT decisions {sorted(choices)}")
+    log(f"GAT training decisions: {json.dumps(_decisions(path, probes=True))}")
+    _train_step(model, _gat_loss(model, graph, x, sage), totals, device,
+                "GAT step with the deciding AutoSage", update=False)
+    grads = _grads(model)
+    del sage
+    _empty_cache(device)
+    replay = AutoSage(device=device, cache=ScheduleCache(path=str(path), replay_only=True))
+    _train_step(model, _gat_loss(model, graph, x, replay), totals, device, "GAT replay step",
+                update=False)
+    for n, g_r, g in zip([n for n, _ in model.named_parameters()], _grads(model), grads):
+        check_equal(f"GAT replayed grad {n}", g_r, g)
+    s_csr = graph.structural()
+    _check_replayed("GAT", replay, path, lambda op: s_csr.transpose_with_perm()[0]
+                    if op in ("attention_bwd_k", "attention_bwd_v") else s_csr)
+    log("replay-only AutoSage: the six GAT decisions replayed; gradients bit-equal")
+    del replay
+    _empty_cache(device)
+    for family in ("ragged_ell_cuda", "merge_path_cuda"):
+        _pinned_sddmm_step("reddit", family, ref_model, graph, x, ref_grads, path, totals,
+                           device)
+        _empty_cache(device)
+    del ref_model, model
+    registry.clear_layout_memo()
+    _empty_cache(device)
+    _peak("phase 9 (GAT training, Reddit-0.25)", device)
+
+    # dense-W leg: its gate (n_rows * deg_max * bc * 4 bytes) shuts it out
+    # of Reddit-0.25; products_like keeps OGBN-Products' average degree
+    _peak_reset(device)
+    t0 = time.perf_counter()
+    prod = products_like(PRODUCTS_SCALE, seed=0).dedup_edges()
+    log(f"products_like({PRODUCTS_SCALE}, seed=0).dedup_edges(): {prod.n_rows} nodes, "
+        f"{prod.nnz} edges, "
+        f"max degree {int(prod.degrees.max())} ({time.perf_counter() - t0:.1f} s)")
+    model = GAT(IN_DIM, D_ATTN, seed=0, device=device)
+    x = torch.randn(prod.n_rows, IN_DIM, generator=torch.Generator().manual_seed(3)).to(device)
+    ref_model, ref_loss, _ = reference(model, prod, x)
+    ref_grads = _grads(ref_model)
+    path = workdir / "gat_products.json"
+    sage = AutoSage(device=device, cache=ScheduleCache(path=str(path)))
+    loss, dt = _train_step(model, _gat_loss(model, prod, x, sage), totals, device,
+                           "GAT products step 1", update=False)
+    err = _check_grads("GAT products step 1", model, _grads(model), ref_grads)
+    log(f"GAT products step: loss {loss:.6f} (reference {ref_loss:.6f}), max |grad - "
+        f"reference| {err:.3e}, {dt:.1f} s; decisions {json.dumps(_decisions(path))}")
+    del sage
+    _pinned_sddmm_step("products", "block_ell_cuda", ref_model, prod, x, ref_grads, path,
+                       totals, device)
+    del ref_model, model
+    registry.clear_layout_memo()
+    _empty_cache(device)
+    _peak("phase 9 (GAT training, products leg)", device)
+    log(f"GAT training launches (sum of the counted runs): {json.dumps(totals)}")
+    return totals
+
+
 def run(device, scale: float = SCALE, reps: int = 5) -> list:
-    """Phases 2-6 on ``device``; returns the kernels records."""
+    """Phases 2-9 on ``device``; returns the kernels records."""
+    from repro_torch.core import registry
     from repro_torch.models.gnn import norm_csr
     from repro_torch.sparse import reddit_like
+
+    t_run = time.perf_counter()
+
+    def phase(label, fn, *args):
+        _peak_reset(device)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"== {label}: {time.perf_counter() - t0:.1f} s (run so far "
+            f"{time.perf_counter() - t_run:.1f} s)")
+        _peak(label, device)
+        registry.clear_layout_memo()
+        return out
+
+    def add(counts, more):
+        for name, n in more.items():
+            counts[name] = counts.get(name, 0) + n
 
     t0 = time.perf_counter()
     graph = reddit_like(scale, seed=0)
     log(f"reddit_like({scale}, seed=0): {graph.n_rows} nodes, {graph.nnz} edges, "
         f"avg degree {graph.nnz / graph.n_rows:.1f} ({time.perf_counter() - t0:.1f} s)")
-    edge_cases(device)
-    records = kernel_phase(norm_csr(graph), device, reps)
     with tempfile.TemporaryDirectory() as tmp:
-        counts = model_phase(graph, device, Path(tmp))
-    t0 = time.perf_counter()
-    dedup = graph.dedup_edges()
-    del graph
-    log(f"dedup_edges: {dedup.nnz} edges, max degree {int(dedup.degrees.max())} "
-        f"({time.perf_counter() - t0:.1f} s)")
-    attention_edge_cases(device)
-    records.update(attention_kernel_phase(dedup, device, reps))
-    with tempfile.TemporaryDirectory() as tmp:
-        for name, n in gat_phase(dedup, device, Path(tmp)).items():
-            counts[name] = counts.get(name, 0) + n
+        work = Path(tmp)
+        phase("phase 2a (SpMM edge cases)", edge_cases, device)
+        records = phase("phase 2 (SpMM kernels)", kernel_phase, norm_csr(graph), device, reps)
+        counts = phase("phases 3-4 (SAGE inference)", model_phase, graph, device, work)
+        t0 = time.perf_counter()
+        dedup = graph.dedup_edges()
+        log(f"dedup_edges: {dedup.nnz} edges, max degree {int(dedup.degrees.max())} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        phase("phase 5a (attention edge cases)", attention_edge_cases, device)
+        t0 = time.perf_counter()
+        attn_lay = _attn_layouts(dedup, device)
+        sync(device)
+        log(f"attention layouts 8x8: nrb={attn_lay['nrb']} W={attn_lay['width']} "
+            f"slots={attn_lay['n_slots']} ({time.perf_counter() - t0:.1f} s host conversion "
+            "+ upload)")
+        records.update(phase("phase 5 (attention kernels)", attention_kernel_phase, dedup,
+                             attn_lay, device, reps))
+        add(counts, phase("phase 6 (GAT inference)", gat_phase, dedup, device, work))
+        phase("phase 7a (SDDMM edge cases)", sddmm_edge_cases, device)
+        held = {"attn_lay": attn_lay}
+        del attn_lay
+        records.update(phase("phase 7 (SDDMM kernels)", sddmm_kernel_phase, dedup, held,
+                             device, reps))
+        add(counts, phase("phase 8 (SAGE training)", sage_train_phase, graph, device, work))
+        add(counts, phase("phase 9 (GAT training)", gat_train_phase, dedup, device, work))
     log(f"main-path launches (sum of the counted runs): {json.dumps(counts)}")
     missing = [name for name in records if counts.get(name, 0) == 0]
     if missing:

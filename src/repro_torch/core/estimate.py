@@ -1,8 +1,8 @@
 """Roofline-style candidate estimates (paper §4.2 'shortlist candidates
 with a roofline-style estimate').
 
-Port of the SpMM and attention parts of repro/core/estimate.py (with
-the SDDMM branches the composed attention pipelines use). Each variant is
+Port of repro/core/estimate.py (all but the legacy per-op
+"csr_attention" op). Each variant is
 modelled by the branch of the `repro` family it ports
 (registry.PORTED_FROM), so ``ragged_ell_cuda`` is costed exactly like
 ``ragged_ell_pallas``. Two constants of the JAX model described a Pallas
@@ -206,9 +206,39 @@ def estimate_spmm(feat: InputFeatures, hw: HardwareSpec, variant: str,
 
 def estimate_sddmm(feat: InputFeatures, hw: HardwareSpec, variant: str,
                    knobs: Dict) -> float:
-    """The SDDMM stages of the composed attention pipelines; the block
-    families join with the SDDMM slice."""
+    """SDDMM candidates, and the SDDMM stages of the composed attention
+    pipelines. The block families charge one ``hw.step_s`` per (slot,
+    128-column chunk), the Pallas grid's step; the CUDA kernels take F in
+    one pass, and on the card ``step_s`` is fitted per slot."""
+    family = PORTED_FROM.get(variant, variant)
     n, f, nnz = feat.n_rows, feat.f, feat.nnz
+    if family in ("block_ell_pallas", "ragged_ell_pallas"):
+        ragged = family == "ragged_ell_pallas"
+        bc = knobs.get("bc", 8)
+        f_chunk = knobs.get("f_chunk", 128)
+        eff = _block_ell_elems(feat, knobs, ragged, variant)
+        # x/y tile streams + tile output, plus the per-edge gather that
+        # converts tiles back to the baseline's CSR-ordered nnz vector
+        bytes_moved = eff * (2.0 * f * BYTES_F32 / bc + BYTES_F32)
+        bytes_moved += nnz * (BYTES_F32 + 12)
+        flops = 2.0 * eff * f
+        n_steps = _block_ell_steps(eff, knobs) * max(f / f_chunk, 1.0)
+        # a hub row block's slots all re-gather the same X rows: the same
+        # serialization shape as the SpMM chain (merge-path does not pay it)
+        penalty = _row_serial_penalty(feat, hw, knobs)
+        return _roofline(bytes_moved, flops, hw) + n_steps * hw.step_s + penalty
+    if family == "merge_path_pallas":
+        bc = knobs.get("bc", 8)
+        f_chunk = knobs.get("f_chunk", 128)
+        tile_slots = knobs.get("tile_slots", 8)
+        eff = _block_ell_elems(feat, knobs, True, variant)
+        bytes_moved = eff * (2.0 * f * BYTES_F32 / bc + BYTES_F32)
+        bytes_moved += nnz * (BYTES_F32 + 12)
+        bytes_moved += (n + feat.n_cols) * f * BYTES_F32  # resident X/Y
+        flops = 2.0 * eff * f
+        slot_steps = _block_ell_steps(eff, knobs) * max(f / f_chunk, 1.0)
+        tile_steps = slot_steps / max(tile_slots, 1)
+        return _roofline(bytes_moved, flops, hw) + (slot_steps + tile_steps) * hw.step_s
     if variant == "gather_dot":
         bytes_moved = nnz * (2 * f * BYTES_F32 + 8 + BYTES_F32)
         flops = 2.0 * nnz * f
@@ -275,14 +305,19 @@ def estimate_attention(feat: InputFeatures, hw: HardwareSpec, variant: str,
 def estimate(feat: InputFeatures, hw: HardwareSpec, variant: str,
              knobs: Dict) -> float:
     """Seconds for ``variant`` on ``feat``, dispatched on the op's compute
-    kind. SpMM and op "attention" are ported; other ops raise KeyError
-    (estimate.py's "unknown variant" signal)."""
+    kind: grad ops reuse the forward models ("spmm_bwd_b" is an SpMM
+    roofline over the transposed features, "attention_bwd_e" an SDDMM
+    one), and dynamic-values ops pay one extra nnz-sized scatter. The
+    legacy "csr_attention" op raises KeyError (estimate.py's "unknown
+    variant" signal)."""
     kind = op_kind(feat.op)
     if kind == "spmm":
         t = estimate_spmm(feat, hw, variant, knobs)
         if op_dynamic_vals(feat.op):
             t += feat.nnz * (BYTES_F32 + 8) / hw.hbm_bw
         return t
+    if kind == "sddmm":
+        return estimate_sddmm(feat, hw, variant, knobs)
     if feat.op == "attention":
         return estimate_attention(feat, hw, variant, knobs)
     raise KeyError(feat.op)

@@ -63,17 +63,22 @@ def default_probe_args(
     op: str, f: int, device: torch.device, seed: int = 0
 ) -> Callable[[CSR], tuple]:
     """Random dense operands of width f on ``device``, per subgraph,
-    shaped for ``op``: (B,) for SpMM, (q, k, v) for attention."""
+    shaped for ``op``'s compute kind: (B,) for SpMM, (vals, B) for
+    runtime-valued SpMM (a random nnz-vector standing in for the per-edge
+    cotangent), (X, Y) for SDDMM, (q, k, v) for attention. Grad ops get
+    cotangent-shaped operands: "spmm_bwd_b" runs on the transpose, so its
+    B is (n_cols of the transpose, F_grad)."""
     kind = features_mod.op_kind(op)
-    if kind == "sddmm" or features_mod.op_dynamic_vals(op):
-        raise NotImplementedError(f"op {op!r} is not ported to repro_torch yet")
+    dynamic = features_mod.op_dynamic_vals(op)
 
     def fn(sub: CSR) -> tuple:
         # per-subgraph stream: the 1x and 2x probe subgraphs must not get
         # byte-identical operands (a warm cache would bias the slope)
         rng = np.random.default_rng((seed, sub.n_rows, sub.nnz))
         if kind == "spmm":
-            shapes = [(sub.n_cols, f)]
+            shapes = [(sub.nnz,), (sub.n_cols, f)] if dynamic else [(sub.n_cols, f)]
+        elif kind == "sddmm":
+            shapes = [(sub.n_rows, f), (sub.n_cols, f)]
         else:
             shapes = [(sub.n_rows, f), (sub.n_cols, f), (sub.n_cols, f)]
         return tuple(

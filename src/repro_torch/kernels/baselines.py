@@ -114,6 +114,44 @@ def sddmm_row_ell(aux: Dict, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return out * (val != 0)
 
 
+def sddmm_row_ell_csr(aux: Dict, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Row-ELL SDDMM gathered back to the CSR-ordered nnz vector (the
+    registry's ``row_ell`` SDDMM variant: ``ell_colind``/``ell_val``
+    beside the CSR arrays)."""
+    ell = sddmm_row_ell({"colind": aux["ell_colind"], "val": aux["ell_val"]}, x, y)
+    return ell[aux["edge_row"].long(), aux["edge_slot"].long()]
+
+
+# ------------------------------------------ dynamic-values SpMM (grads)
+# Runtime-valued SpMM for the backward ops (core/autodiff.py): the sparse
+# values are a cotangent that changes every step, so prepare converts the
+# structure once and each call places the nnz-vector into the layout.
+def prepare_csr_structural(csr: CSR) -> Dict[str, np.ndarray]:
+    return {
+        "rowptr": np.asarray(csr.rowptr, np.int32),
+        "colind": np.asarray(csr.colind, np.int32),
+    }
+
+
+def spmm_gather_dyn(aux: Dict, vals: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Baseline: gather + deterministic segment-sum with runtime values."""
+    return ref.spmm_ref(aux["rowptr"], aux["colind"], vals, b)
+
+
+def prepare_row_ell_dyn(csr: CSR) -> Dict[str, np.ndarray]:
+    s = csr.structural()
+    return {"colind": prepare_row_ell(s)["colind"], **prepare_edge_slots(s)}
+
+
+def spmm_row_ell_dyn(aux: Dict, vals: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Row-ELL SpMM with a per-call scatter: each edge owns one (row,
+    slot) cell, so duplicates keep distinct cells and a plain assignment
+    keeps accumulate-on-duplicate SpMM semantics."""
+    table = vals.new_zeros(aux["colind"].shape, dtype=torch.float32)
+    table[aux["edge_row"].long(), aux["edge_slot"].long()] = vals.to(torch.float32)
+    return spmm_row_ell({"colind": aux["colind"], "val": table}, b)
+
+
 def row_softmax(aux: Dict, val: torch.Tensor) -> torch.Tensor:
     return ref.row_softmax_ref(aux["rowptr"], aux["colind"], val)
 

@@ -85,7 +85,7 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
 
 
 # operands the kernels read as fp32; every other operand is int32
-FLOAT_OPERANDS = frozenset({"vals", "b", "mask", "q", "k", "v"})
+FLOAT_OPERANDS = frozenset({"vals", "b", "mask", "q", "k", "v", "x", "y"})
 
 
 def check_operands(name: str, device: torch.device, **tensors: torch.Tensor) -> None:

@@ -1,10 +1,13 @@
-"""Plain-torch oracles for the forward ops: ground truth for the tests,
-the guardrail baselines' semantics, and the plain versions the CUDA
-kernels are held against.
+"""Plain-torch oracles: ground truth for the tests, the guardrail
+baselines' semantics, the plain versions the CUDA kernels are held
+against, and the reference gradients of training on the card.
 
-Port of the forward half of repro/kernels/ref.py (SpMM, SDDMM, row
-softmax, CSR attention and their block-ELL layout oracles), with the same
-signatures. Each oracle works in chunks of rows, row blocks or slots, so
+Port of repro/kernels/ref.py (SpMM, SDDMM, row softmax, CSR attention,
+their closed-form backward oracles and the block-ELL, ragged and
+merge-path layout oracles), with the same signatures. The backward
+oracles are explicit VJPs, not autograd through the forward ones:
+autograd would keep every gathered chunk alive for the backward (three
+28 GB operands for attention at Reddit-0.25, D = 256). Each oracle works in chunks of rows, row blocks or slots, so
 its memory stays bounded at Reddit scale: the JAX oracle's one-shot
 gather ``b_blocks[slot_colblk]`` would build an (S, bc, F) array of
 163 GB there, and ``sddmm_ref``'s ``x[rows]`` / ``y[colind]`` 28 GB each
@@ -116,6 +119,102 @@ def csr_attention_ref(
     logits = sddmm_ref(rowptr, colind, q, k, chunk_elems) * scale
     probs = row_softmax_ref(rowptr, colind, logits)
     return spmm_ref(rowptr, colind, probs, v, chunk_elems)
+
+
+# ---- backward oracles (ground truth for core/autodiff.py) ------------
+# Closed-form VJPs of the forward oracles. SpMM's backward is an SDDMM
+# (grad w.r.t. vals) plus a transposed SpMM (grad w.r.t. B), the latter
+# a scatter over colind, which is A^T @ grad without building A^T.
+def _scatter_cols(
+    rowptr: torch.Tensor,
+    colind: torch.Tensor,
+    w: Optional[torch.Tensor],
+    x: torch.Tensor,
+    n_out: int,
+    chunk_elems: int = CHUNK_ELEMS,
+) -> torch.Tensor:
+    """out[j] = sum over edges (i, j) of w_ij * x_i  (A(w)^T @ x)."""
+    out = torch.zeros((n_out, x.shape[1]), dtype=x.dtype, device=x.device)
+    for r, r_hi, lo, hi in _row_chunks(rowptr, x.shape[1], chunk_elems):
+        g = x.index_select(0, _edge_rows(rowptr, r, r_hi))
+        if w is not None:
+            g.mul_(w[lo:hi, None].to(x.dtype))
+        out.index_add_(0, colind[lo:hi].long(), g)
+    return out
+
+
+def spmm_bwd_ref(
+    rowptr: torch.Tensor,
+    colind: torch.Tensor,
+    val: Optional[torch.Tensor],
+    b: torch.Tensor,
+    grad_c: torch.Tensor,
+    chunk_elems: int = CHUNK_ELEMS,
+    want_val: bool = True,
+) -> tuple:
+    """VJP of spmm_ref w.r.t. (val, b): returns (grad_val[nnz], grad_b);
+    grad_val is None when ``want_val`` is false."""
+    # dL/dval_ij = <grad_C_i, B_j>  (an SDDMM on the forward pattern)
+    grad_val = sddmm_ref(rowptr, colind, grad_c, b, chunk_elems) if want_val else None
+    # dL/dB_j = sum_i val_ij * grad_C_i  (SpMM on the transposed CSR)
+    grad_b = _scatter_cols(rowptr, colind, val, grad_c, b.shape[0], chunk_elems)
+    return grad_val, grad_b
+
+
+def sddmm_bwd_ref(
+    rowptr: torch.Tensor,
+    colind: torch.Tensor,
+    x: torch.Tensor,
+    y: torch.Tensor,
+    grad_e: torch.Tensor,
+    chunk_elems: int = CHUNK_ELEMS,
+) -> tuple:
+    """VJP of sddmm_ref w.r.t. (x, y): two SpMMs whose sparse values are
+    the per-edge cotangent — one on A, one on A^T."""
+    g = grad_e.to(x.dtype)
+    grad_x = spmm_ref(rowptr, colind, g, y, chunk_elems)
+    grad_y = _scatter_cols(rowptr, colind, g, x, y.shape[0], chunk_elems)
+    return grad_x, grad_y
+
+
+def row_softmax_bwd_ref(
+    rowptr: torch.Tensor,
+    colind: torch.Tensor,
+    probs: torch.Tensor,
+    grad_probs: torch.Tensor,
+) -> torch.Tensor:
+    """VJP of row_softmax_ref given its *output* probs: per row,
+    grad_logits = p * (grad_p - <p, grad_p>)."""
+    rows = _edge_rows(rowptr, 0, rowptr.shape[0] - 1)
+    tmp = probs * grad_probs
+    row_dot = torch.segment_reduce(tmp, "sum", offsets=rowptr.to(torch.int64), axis=0)
+    return tmp - probs * row_dot[rows]
+
+
+def csr_attention_bwd_ref(
+    rowptr: torch.Tensor,
+    colind: torch.Tensor,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    grad_out: torch.Tensor,
+    scale: Optional[float] = None,
+    chunk_elems: int = CHUNK_ELEMS,
+) -> tuple:
+    """VJP of csr_attention_ref w.r.t. (q, k, v): recompute probs, then
+    compose the spmm/sddmm/softmax backward pieces."""
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    logits = sddmm_ref(rowptr, colind, q, k, chunk_elems) * scale
+    probs = row_softmax_ref(rowptr, colind, logits)
+    del logits
+    # out = SpMM(A(probs), v): grads w.r.t. probs (per edge) and v
+    grad_probs, grad_v = spmm_bwd_ref(rowptr, colind, probs, v, grad_out, chunk_elems)
+    grad_logits = row_softmax_bwd_ref(rowptr, colind, probs, grad_probs)
+    del grad_probs
+    grad_q, grad_k = sddmm_bwd_ref(rowptr, colind, q, k, grad_logits * scale,
+                                   chunk_elems)
+    return grad_q, grad_k, grad_v
 
 
 def _b_blocks(b: torch.Tensor, bc: int) -> torch.Tensor:
@@ -265,3 +364,46 @@ def spmm_merge_path_ref(
     return spmm_ragged_ell_ref(
         slot_rowblk, slot_colblk[:n_slots], slot_vals, b, n_row_blocks, bc
     )
+
+
+def sddmm_ragged_ell_ref(
+    slot_rowblk: torch.Tensor,  # int (n_slots,)
+    slot_colblk: torch.Tensor,  # int (n_slots,)
+    mask: torch.Tensor,  # (n_slots, rb, bc) structural 0/1
+    x: torch.Tensor,  # (n_rows, F)
+    y: torch.Tensor,  # (n_cols, F)
+    bc: int,
+    chunk_elems: int = CHUNK_ELEMS,
+) -> torch.Tensor:
+    """Slot-compacted SDDMM oracle: per-slot masked X_i @ Y_j^T tiles."""
+    n_slots, rb, _ = mask.shape
+    f = x.shape[1]
+    xb = _row_blocks(x, rb, -(-x.shape[0] // rb))
+    yb = _b_blocks(y, bc)
+    out = torch.empty(mask.shape, dtype=torch.result_type(x, y), device=x.device)
+    for lo, hi in chunk_ranges(n_slots, (rb + bc) * f, chunk_elems):
+        tiles = torch.bmm(xb[slot_rowblk[lo:hi].long()],
+                          yb[slot_colblk[lo:hi].long()].transpose(1, 2))
+        out[lo:hi] = tiles * mask[lo:hi]
+    return out
+
+
+def sddmm_merge_path_ref(
+    blkptr: torch.Tensor,  # int32 (nrb + 1,)
+    slot_colblk: torch.Tensor,  # int32 (padded_slots,) tail-padded
+    tile_mask: torch.Tensor,  # f32 (n_tiles, tile_slots, rb, bc)
+    x: torch.Tensor,  # (n_rows, F)
+    y: torch.Tensor,  # (n_cols, F)
+    n_slots: int,
+    bc: int,
+    chunk_elems: int = CHUNK_ELEMS,
+) -> torch.Tensor:
+    """Merge-path SDDMM oracle: the ragged oracle over the unpadded
+    slots; returns (n_slots, rb, bc)."""
+    rb = tile_mask.shape[2]
+    mask = tile_mask.reshape(-1, rb, tile_mask.shape[3])[:n_slots]
+    slot_rowblk = torch.searchsorted(
+        blkptr.long(), torch.arange(n_slots, device=blkptr.device), right=True
+    ) - 1
+    return sddmm_ragged_ell_ref(slot_rowblk, slot_colblk[:n_slots], mask, x, y, bc,
+                                chunk_elems)

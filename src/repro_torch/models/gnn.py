@@ -8,9 +8,11 @@ Port of repro/models/gnn.py (``init_gnn``, ``_norm_csr``,
     GAT-style CSR attention:     H' = CSR_attention(A, HW_q, HW_k, HW_v)
                                  (SDDMM -> row-softmax -> SpMM, §8.7)
 
-These slices serve the forward pass (inference). With a scheduler and
-gradients enabled, `api.spmm` and `api.attention` raise: the scheduled
-backward ops are ROADMAP.md Queue 1 items 5 and 6.
+With a scheduler and gradients enabled, `SAGE` and `GAT` train through
+it: every forward and backward sparse op is a scheduled decision under
+its own op string (core/autodiff.py); under ``torch.no_grad`` only the
+forward ops are scheduled. src/repro_torch/train_gnn.py takes the
+training steps.
 """
 from __future__ import annotations
 

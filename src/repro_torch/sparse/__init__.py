@@ -5,12 +5,15 @@ from repro_torch.sparse.bsr import (
     RaggedBlockELL,
     block_ell_edge_index,
     csr_to_block_ell,
+    csr_to_ragged,
     hub_split,
 )
 from repro_torch.sparse.merge import MergePathELL, build_merge_path
 from repro_torch.sparse.generators import (
     erdos_renyi,
+    fixed_degree,
     hub_skew,
+    power_law,
     products_like,
     reddit_like,
     single_hub,
@@ -25,11 +28,14 @@ __all__ = [
     "RaggedBlockELL",
     "block_ell_edge_index",
     "csr_to_block_ell",
+    "csr_to_ragged",
     "hub_split",
     "MergePathELL",
     "build_merge_path",
     "erdos_renyi",
+    "fixed_degree",
     "hub_skew",
+    "power_law",
     "products_like",
     "reddit_like",
     "single_hub",

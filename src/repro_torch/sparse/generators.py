@@ -7,6 +7,8 @@ repro/sparse/generators.py: the same seed gives the same arrays.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 
 from repro_torch.sparse.csr import CSR, csr_from_coo
@@ -109,3 +111,30 @@ def products_like(scale: float = 0.01, seed: int = 0) -> CSR:
     raw = rng.lognormal(mean=0.0, sigma=1.1, size=n)
     deg = np.maximum(1, (raw / raw.mean() * 50.5)).astype(np.int64)
     return _csr_from_degrees(deg, n, rng)
+
+
+def power_law(
+    n: int,
+    alpha: float,
+    avg_deg: float = 8.0,
+    n_cols: Optional[int] = None,
+    seed: int = 0,
+) -> CSR:
+    """Power-law degree graph: degree of rank-i row ∝ (i+1)^-alpha,
+    normalized to ``avg_deg`` and shuffled over row ids. alpha = 0 is
+    uniform; alpha ≳ 1.2 concentrates edges in a few hub rows."""
+    rng = np.random.default_rng(seed)
+    m = n_cols if n_cols is not None else n
+    raw = np.arange(1, n + 1, dtype=np.float64) ** (-alpha)
+    deg = np.maximum(1, raw / raw.mean() * avg_deg).astype(np.int64)
+    deg = np.minimum(deg, m)  # a row cannot usefully exceed n_cols edges
+    rng.shuffle(deg)
+    return _csr_from_degrees(deg, m, rng)
+
+
+def fixed_degree(n: int, deg: int, n_cols: Optional[int] = None, seed: int = 0) -> CSR:
+    """Uniform-degree graph: every row has exactly ``deg`` neighbors."""
+    rng = np.random.default_rng(seed)
+    return _csr_from_degrees(
+        np.full(n, deg, dtype=np.int64), n_cols if n_cols is not None else n, rng
+    )

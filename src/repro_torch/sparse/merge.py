@@ -108,19 +108,12 @@ def build_merge_path(rag: RaggedBlockELL, tile_slots: int = 8) -> MergePathELL:
     vals = np.pad(
         rag.slot_vals.astype(np.float32), ((0, pad), (0, 0), (0, 0))
     ).reshape(n_tiles, tile_slots, rag.rb, rag.bc)
-    starts = np.arange(n_tiles, dtype=np.int64) * tile_slots
-    tile_rowblk = (
-        np.searchsorted(rag.blkptr.astype(np.int64), starts, side="right") - 1
-    ).astype(np.int32)
-    tile_offset = (starts - rag.blkptr[tile_rowblk]).astype(np.int32)
-    tile_nslots = np.minimum(tile_slots, n_slots - starts).astype(np.int32)
+    tiling = merge_tiling(rag.blkptr, n_slots, tile_slots)
     return MergePathELL(
         blkptr=rag.blkptr.astype(np.int32),
         slot_colblk=colblk,
         tile_vals=vals,
-        tile_rowblk=tile_rowblk,
-        tile_offset=tile_offset,
-        tile_nslots=tile_nslots,
+        **tiling,
         rb=rag.rb,
         bc=rag.bc,
         tile_slots=tile_slots,
@@ -128,3 +121,21 @@ def build_merge_path(rag: RaggedBlockELL, tile_slots: int = 8) -> MergePathELL:
         n_cols=rag.n_cols,
         n_slots=n_slots,
     )
+
+
+def merge_tiling(blkptr: np.ndarray, n_slots: int, tile_slots: int) -> dict:
+    """The merge start coordinates of ``n_slots`` slots cut into tiles of
+    ``tile_slots``: int32 ``tile_rowblk``, ``tile_offset`` and
+    ``tile_nslots`` as `MergePathELL` holds them (the slot stream itself
+    is untouched, so a caller that needs no value tiles skips the padded
+    copy `build_merge_path` makes)."""
+    n_tiles = -(-n_slots // tile_slots) if n_slots else 0
+    starts = np.arange(n_tiles, dtype=np.int64) * tile_slots
+    tile_rowblk = (
+        np.searchsorted(blkptr.astype(np.int64), starts, side="right") - 1
+    ).astype(np.int32)
+    return {
+        "tile_rowblk": tile_rowblk,
+        "tile_offset": (starts - blkptr[tile_rowblk]).astype(np.int32),
+        "tile_nslots": np.minimum(tile_slots, n_slots - starts).astype(np.int32),
+    }

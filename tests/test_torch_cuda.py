@@ -9,12 +9,14 @@ Tolerance: |kernel - plain| <= 1e-4 * |plain| + 1e-4 * max|plain| (the
 same fp32 products summed in another order; for attention, an online
 softmax against the plain version's two-pass one). Dense-W equals ragged
 bit for bit, and merge-path and the attention kernels are bit-equal from
-launch to launch."""
+launch to launch. The three SDDMM kernels give equal live tiles bit for
+bit, and all-zero (+0.0) padded, dummy and tail tiles."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import attention as ka
+from repro_torch.kernels import sddmm as ksd
 from repro_torch.kernels import spmm as ks
 from repro_torch.models.gnn import norm_csr
 from repro_torch.sparse import (
@@ -138,3 +140,107 @@ def test_fused_attention_kernels(cuda, kind, d):
     assert torch.equal(ragged, ka.fused_ragged_attention(*rargs, q, k, v, n_rows=csr.n_rows))
     empty = torch.from_numpy(csr.degrees == 0).to(cuda)
     assert not ragged[empty].any()
+
+
+def _sddmm_graph(kind):
+    """Structural graphs for the SDDMM kernels: a skewed multigraph (mask
+    cells of duplicate edges), one hub over many merge tiles, and one
+    with empty row blocks (dummy slots)."""
+    if kind == "hub_skew":
+        return hub_skew(3000, 4, 0.05, 300, seed=2)
+    if kind == "single_hub":
+        return single_hub(4096, nnz_frac=0.9, seed=1)
+    return _attn_graph("empty_rows")
+
+
+@pytest.mark.parametrize("kind", ["hub_skew", "single_hub", "empty_rows"])
+@pytest.mark.parametrize("rb", [8, 16])
+@pytest.mark.parametrize("f", [16, 41, 256])
+def test_sddmm_kernels(cuda, kind, rb, f):
+    """Each SDDMM kernel against its plain version; the live tiles of the
+    three layouts are bit-equal; padded, dummy and tail tiles are +0.0;
+    a second launch gives the same bits."""
+    csr = _sddmm_graph(kind).structural()
+    bell = csr_to_block_ell(csr, rb=rb, bc=8)
+    rag = bell.to_ragged()
+    g = torch.Generator().manual_seed(f)
+    x = torch.randn(csr.n_rows, f, generator=g).to(cuda)
+    y = torch.randn(csr.n_cols, f, generator=g).to(cuda)
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+
+    rmask = up(np.minimum(rag.slot_vals, 1.0))
+    rargs = (up(rag.slot_rowblk), up(rag.slot_colblk), rmask)
+    dargs = (up(bell.colblk), up(np.minimum(bell.vals, 1.0)))
+    before = dict(ksd.LAUNCHES)
+    ragged = ksd.sddmm_ragged_ell(*rargs, x, y)
+    dense = ksd.sddmm_block_ell(*dargs, x, y)
+    torch.cuda.synchronize()
+    assert ksd.LAUNCHES["sddmm_ragged_ell"] == before["sddmm_ragged_ell"] + 1
+    assert ksd.LAUNCHES["sddmm_block_ell"] == before["sddmm_block_ell"] + 1
+    _close(ragged, ksd.sddmm_ragged_ell_plain(*rargs, x, y))
+    _close(dense, ksd.sddmm_block_ell_plain(*dargs, x, y))
+    assert torch.equal(ragged, ksd.sddmm_ragged_ell(*rargs, x, y))
+    live = torch.from_numpy(
+        np.arange(bell.width)[None, :] < np.maximum(bell.nslots, 1)[:, None]).to(cuda)
+    assert torch.equal(dense[live], ragged)
+    assert not dense[~live].any() and not torch.signbit(dense[~live]).any()
+    dummy_slots = rag.blkptr[:-1][bell.nslots == 0]
+    assert not ragged[up(dummy_slots).long()].any()
+    if rb == 8:
+        for ts in (3, 8, 16):
+            mp = build_merge_path(rag, tile_slots=ts)
+            margs = (up(mp.blkptr), up(mp.slot_colblk), up(mp.tile_rowblk),
+                     up(np.minimum(mp.tile_vals, 1.0)))
+            merged = ksd.sddmm_merge_path(*margs, x, y)
+            _close(merged, ksd.sddmm_merge_path_plain(*margs, x, y))
+            flat = merged.reshape(-1, 8, 8)
+            assert torch.equal(flat[: mp.n_slots], ragged)
+            assert not flat[mp.n_slots:].any()
+            assert torch.equal(merged, ksd.sddmm_merge_path(*margs, x, y))
+
+
+def test_sddmm_explicit_zero_edges_keep_their_dot(cuda):
+    """The mask comes from structure: an edge whose value is 0 still gets
+    <X_i, Y_j> through the registry's ragged SDDMM runner on the card."""
+    from repro_torch.core import registry
+    from repro_torch.kernels import ref
+
+    csr = hub_skew(500, 4, 0.05, 60, seed=3).dedup_edges()
+    val = np.ones(csr.nnz, np.float32)
+    val[::5] = 0.0
+    weighted = CSR(csr.rowptr, csr.colind, val, csr.n_rows, csr.n_cols)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(csr.n_rows, 41, generator=g).to(cuda)
+    y = torch.randn(csr.n_cols, 41, generator=g).to(cuda)
+    rp, ci = (torch.from_numpy(a).to(cuda) for a in (csr.rowptr, csr.colind))
+    build = registry._build_sddmm(ksd.sddmm_ragged_ell, ("slot_rowblk", "slot_colblk", "mask"))
+    run = build(registry._prep_sddmm_ragged(weighted, 8, 8), cuda)
+    _close(run(x, y), ref.sddmm_ref(rp, ci, x, y))
+
+
+@pytest.mark.parametrize("op", ["attention_bwd_q", "spmm_dyn"])
+def test_dynamic_values_runners_on_the_card(cuda, op):
+    """The runtime-valued ragged and merge runners (per-call scatter into
+    the layout) against the segment-sum oracle, on a multigraph whose
+    duplicate edges share a cell; two calls give the same bits."""
+    from repro_torch.core import HardwareSpec, InputFeatures, registry
+    from repro_torch.kernels import ref
+
+    csr = hub_skew(3000, 4, 0.05, 300, seed=2)
+    assert csr.has_duplicate_edges()
+    feat = InputFeatures.from_csr(csr, 64, op)
+    g = torch.Generator().manual_seed(3)
+    vals = torch.randn(csr.nnz, generator=g).to(cuda)
+    b = torch.randn(csr.n_cols, 64, generator=g).to(cuda)
+    rp, ci = (torch.from_numpy(a).to(cuda) for a in (csr.rowptr, csr.colind))
+    want = ref.spmm_ref(rp, ci, vals, b)
+    kernels = [v for v in registry.candidates(feat, HardwareSpec.h100(), cuda)
+               if v.name in ("ragged_ell_cuda", "merge_path_cuda")]
+    assert len(kernels) == 3
+    for v in kernels:
+        run = v.build(v.prepare(csr), cuda)
+        out = run(vals, b)
+        _close(out, want)
+        assert torch.equal(out, run(vals, b))

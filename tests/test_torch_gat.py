@@ -67,8 +67,12 @@ def test_scheduled_forward_matches_jax(case, monkeypatch, tmp_path):
     keys = sage.cache.keys_for_op("attention")
     assert len(keys) == 1 and "|F=32|" in keys[0]
     assert sage.cache.get(keys[0])["probe_ms"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        model(csr, torch.from_numpy(x), sage=sage)  # gradients enabled
+    # with gradients enabled the five backward ops are decisions of their own
+    model(csr, torch.from_numpy(x), sage=sage).sum().backward()
+    for op in ("attention_bwd_e", "attention_bwd_p", "attention_bwd_q",
+               "attention_bwd_k", "attention_bwd_v"):
+        assert len(sage.cache.keys_for_op(op)) == 1, op
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())
 
 
 @pytest.mark.parametrize("family", ["fused_attention_cuda", "ragged_attention_cuda"])

@@ -59,6 +59,10 @@ def test_every_slice_module_is_checked():
         "src/repro_torch/kernels/attention.py",
         "src/repro_torch/core/pipeline.py",
         "src/repro_torch/kernels/spmm.py",
+        "src/repro_torch/kernels/sddmm.py",
+        "src/repro_torch/core/autodiff.py",
+        "src/repro_torch/train_gnn.py",
         "chip_smoke.py",
     } <= checked
     assert (PORT / "csrc" / "attention.cu").is_file()
+    assert (PORT / "csrc" / "sddmm.cu").is_file()

@@ -60,8 +60,11 @@ def test_scheduled_forward_matches_jax(case, monkeypatch, tmp_path):
     _close(out, want)
     # hidden layers share one F=32 decision, the head gets its own F=5 key
     assert len(sage.cache.keys_for_op("spmm")) == 2
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        model(csr, torch.from_numpy(x), sage=sage)  # gradients enabled
+    assert not sage.cache.keys_for_op("spmm_bwd_b")
+    # with gradients enabled the backward SpMMs are decisions of their own
+    model(csr, torch.from_numpy(x), sage=sage).sum().backward()
+    assert len(sage.cache.keys_for_op("spmm_bwd_b")) == 2
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())
 
 
 def test_norm_csr_matches_jax(case):

@@ -239,12 +239,14 @@ def test_decide_attention_then_replay(tmp_path, probe_kernels, monkeypatch):
     assert d_r.from_cache and d_r.choice == d.choice and not d_r.probe_ms
     with pytest.raises(ReplayMiss):
         replay.decide_attention(csr, 24)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        api.attention(csr, q, k, v, sage=sage)  # gradients: a later slice
     lines = (tmp_path / "telemetry" / "attention_decisions.jsonl").read_text().splitlines()
     records = [json.loads(line) for line in lines]
     assert [r["from_cache"] for r in records] == [False, True, True]
     assert records[0]["choice"] == d.choice and records[0]["probe_ms"] == entry["probe_ms"]
+    # gradients enabled: the forward replays, the backward ops are decided
+    qg = q.clone().requires_grad_()
+    api.attention(csr, qg, k, v, sage=sage).sum().backward()
+    assert sage.cache.keys_for_op("attention_bwd_e") and torch.isfinite(qg.grad).all()
 
 
 def test_attention_cache_entries_load_both_ways(tmp_path, probe_kernels):
@@ -283,3 +285,123 @@ def test_span_totals_split_a_decide(tmp_path, probe_kernels, monkeypatch):
     assert {"decide", "features", "estimate", "probe", "guardrail"} <= set(after)
     grew = {k: v - before.get(k, 0.0) for k, v in after.items()}
     assert grew["decide"] >= grew["probe"] > 0
+
+
+# ------------------------------------------------ training (backward) ops
+TRAIN_OPS = ["sddmm", "spmm_dyn", "spmm_bwd_b", "spmm_bwd_vals", "spmm_bwd_b_dyn",
+             "sddmm_bwd_x", "sddmm_bwd_y", "attention_bwd_e", "attention_bwd_p",
+             "attention_bwd_q", "attention_bwd_k", "attention_bwd_v"]
+
+
+def _pool_pairs(feat, hw, jhw):
+    pool = registry.candidates(feat, hw, CPU, include_kernels=True)
+    jx_pool = [v for v in jx_registry.candidates(_jx_feat(feat), jhw, include_pallas=True)
+               if v.knobs.get("f_tile", 128) == 128]
+    return pool, jx_pool
+
+
+@pytest.mark.parametrize("profile", ["cpu", "cpu_wide"])
+@pytest.mark.parametrize("op", TRAIN_OPS)
+def test_training_op_candidates_and_estimates_match_jax(op, profile):
+    """Every training op's pool is the JAX package's, variant for variant
+    through PORTED_FROM (the Pallas f_tile twins folded), with the same
+    baseline, and each candidate is costed exactly as its twin; on a
+    skewed graph (row-ELL gated out) and a balanced one. F <= 128, where
+    a Pallas and a CUDA SpMM step both cover the whole feature tile."""
+    hw, jhw = HardwareSpec.from_profile(profile), JxHw.from_profile(profile)
+    for csr in (hub_skew(2000, 4, 0.05, 400, seed=2), erdos_renyi(800, 4e-3, seed=3)):
+        for f in (16, 64, 128):
+            feat = InputFeatures.from_csr(csr, f, op)
+            pool, jx_pool = _pool_pairs(feat, hw, jhw)
+            assert [(registry.PORTED_FROM[v.name], v.knobs, v.is_baseline) for v in pool] == [
+                (v.name, {k: x for k, x in v.knobs.items() if k != "f_tile"}, v.is_baseline)
+                for v in jx_pool]
+            for v, twin in zip(pool, jx_pool):
+                mine = est.estimate(feat, hw, v.name, v.knobs)
+                theirs = jx_est.estimate(_jx_feat(feat), jhw, twin.name, twin.knobs)
+                assert mine == pytest.approx(theirs, rel=1e-12), (op, f, v.full_name())
+            base = registry.baseline(feat, hw, CPU)
+            assert base.full_name() == jx_registry.baseline(_jx_feat(feat), jhw).full_name()
+    # the SDDMM estimate has no per-F tile difference: equal at F = 256 too
+    if op_kind_is_sddmm(op):
+        feat = InputFeatures.from_csr(hub_skew(2000, 4, 0.05, 400, seed=2), 256, op)
+        for v, twin in zip(*_pool_pairs(feat, hw, jhw)):
+            assert est.estimate(feat, hw, v.name, v.knobs) == pytest.approx(
+                jx_est.estimate(_jx_feat(feat), jhw, twin.name, twin.knobs), rel=1e-12)
+
+
+def op_kind_is_sddmm(op):
+    from repro_torch.core.features import op_kind
+
+    return op_kind(op) == "sddmm"
+
+
+def test_sddmm_gates_against_the_layout_budget():
+    """At Reddit-0.25 (deduplicated) the 512 MB CPU budget shuts every
+    block SDDMM family out, as in the JAX package; the H100's admits
+    ragged and merge-path, while dense-W's n_rows * deg_max * bc * 4 =
+    98.3 GB stays above it."""
+    reddit = dataclasses.replace(
+        InputFeatures.from_csr(hub_skew(300, 3, 0.1, 40, seed=2), 256, "attention_bwd_e"),
+        n_rows=58_241, n_cols=58_241, nnz=27_777_678, avg_deg=477.0, deg_max=52_755.0,
+    )
+    names = {v.name for v in registry.candidates(reddit, HardwareSpec.cpu(), CPU, True)}
+    assert names == {v.name for v in jx_registry.candidates(_jx_feat(reddit), JxHw.cpu(),
+                                                            include_pallas=True)}
+    assert names == {"gather_dot"}
+    on_card = {v.full_name() for v in registry.candidates(reddit, HardwareSpec.h100(), CPU,
+                                                          True)}
+    assert {n.split("[")[0] for n in on_card} == {"gather_dot", "ragged_ell_cuda",
+                                                  "merge_path_cuda"}
+    assert len(on_card) == 5  # ragged 8x8 and 16x8, merge tile_slots 8 and 16
+
+
+def _train_step_grad(api_mod, graph, b, sage):
+    """Gradient of sum(spmm(graph, b)^2) w.r.t. b through the facade."""
+    bt = torch.from_numpy(b).requires_grad_()
+    (api_mod.spmm(graph, bt, sage=sage) ** 2).sum().backward()
+    return bt.grad.numpy()
+
+
+def test_backward_cache_entries_replay_in_both_packages(tmp_path, monkeypatch):
+    """A JAX-written cache holding forward and backward keys replays in
+    the port (same choices, same gradient), and a port-written one in the
+    JAX package. Library-op pools on both sides, so every cached choice
+    exists in both; the device part of the key is pinned to the port's
+    with the JAX package's AUTOSAGE_DEVICE_SIG_OVERRIDE."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro import api as jx_api
+    from repro.core import AutoSage as JxSage
+    from repro.sparse import power_law as jx_power_law
+    from repro_torch.core import device_sig
+    from repro_torch.sparse import power_law
+
+    g = power_law(300, 1.6, avg_deg=6.0, n_cols=200, seed=11)
+    jg = jx_power_law(300, 1.6, avg_deg=6.0, n_cols=200, seed=11)
+    b = np.random.default_rng(8).standard_normal((g.n_cols, 16)).astype(np.float32)
+    monkeypatch.setenv("AUTOSAGE_DEVICE_SIG_OVERRIDE", device_sig(CPU))
+
+    def jx_grad(sage):
+        return np.asarray(jax.grad(lambda b: (jx_api.spmm(jg, b, sage=sage) ** 2).sum())(
+            jnp.asarray(b)))
+
+    jpath = str(tmp_path / "jax.json")
+    want = jx_grad(JxSage(cache=JxCache(path=jpath), probe_iters=2, probe_cap_ms=100))
+    written = {k: e["choice"] for k, e in json.loads(open(jpath).read()).items()}
+    assert {k.split("|")[3] for k in written} == {"spmm", "spmm_bwd_b"}
+    port = AutoSage(cache=ScheduleCache(path=jpath, replay_only=True), device="cpu")
+    np.testing.assert_allclose(_train_step_grad(api, g, b, port), want, rtol=1e-4, atol=1e-4)
+    for key, choice in written.items():
+        _, _, f, op, _ = key.split("|")
+        graph = g if op == "spmm" else g.transpose()
+        assert port.decide(graph, int(f[2:]), op).choice == choice
+
+    ppath = str(tmp_path / "port.json")
+    got = _train_step_grad(api, g, b, _sage(ppath))
+    port_written = {k: e["choice"] for k, e in json.loads(open(ppath).read()).items()}
+    assert set(port_written) == set(written)
+    replay = JxSage(cache=JxCache(path=ppath, replay_only=True))
+    np.testing.assert_allclose(jx_grad(replay), got, rtol=1e-4, atol=1e-4)
+    assert {k: e["choice"] for k, e in json.loads(open(ppath).read()).items()} == port_written

@@ -19,6 +19,8 @@ GENERATORS = [
     ("hub_skew", dict(n=600, base_deg=4, hub_frac=0.1, hub_deg=60, seed=2)),
     ("erdos_renyi", dict(n=800, p=4e-3, seed=3)),
     ("single_hub", dict(n=256, nnz_frac=0.9, seed=4)),
+    ("power_law", dict(n=300, alpha=1.7, avg_deg=6.0, n_cols=200, seed=1)),
+    ("fixed_degree", dict(n=200, deg=5, n_cols=150, seed=6)),
 ]
 
 
@@ -112,3 +114,24 @@ def test_int32_guard_matches():
         mod._check_int32("x", 2**31 - 1)
         with pytest.raises(ValueError, match="overflows int32"):
             mod._check_int32("x", 2**31)
+
+
+@pytest.mark.parametrize("pair", GENERATORS[2:], ids=[g[0] for g in GENERATORS[2:]])
+@pytest.mark.parametrize("rb,bc", [(8, 8), (16, 8), (8, 16)])
+def test_direct_ragged_builder_matches(pair, rb, bc):
+    """csr_to_ragged (no dense-W table) returns the JAX package's
+    to_ragged arrays, its BlockELL's padding_frac and, per edge, the
+    ragged cell block_ell_edge_index locates — valued and structural."""
+    j, p = _graph(pair)
+    vals = np.random.default_rng(2).standard_normal(p.nnz).astype(np.float32)
+    for jc, pc in ((j, p), (jx.CSR(j.rowptr, j.colind, vals, j.n_rows, j.n_cols),
+                            pt.CSR(p.rowptr, p.colind, vals, p.n_rows, p.n_cols))):
+        jb = jx.csr_to_block_ell(jc, rb=rb, bc=bc)
+        rag, padding_frac, edges = pt.csr_to_ragged(pc, rb, bc)
+        _assert_same(jb.to_ragged(), rag)
+        assert padding_frac == jb.padding_frac
+        idx = jx.block_ell_edge_index(jc, jb)
+        flat = jb.to_ragged().blkptr[idx["edge_blkrow"]] + idx["edge_slot"]
+        assert np.array_equal(edges["edge_slot"], flat)
+        assert np.array_equal(edges["edge_r"], idx["edge_r"])
+        assert np.array_equal(edges["edge_c"], idx["edge_c"])
