@@ -93,10 +93,45 @@ order; any failure raises and the script exits non-zero:
    products_like(0.02, seed=0).dedup_edges() in a leg of its own): each
    pinned step must launch its kernel and match the reference.
 
-The main path is every forward of phases 3, 4 and 6 and every training
-step of phases 8 and 9, through the entry points a user calls: decide
-(probes included) + two forwards or three steps, the replay run, and
-each pinned run. The launch counters of every kernel are set to 0 just
+10. The kernel-level entry point (kernels/ops.py) at full size, on the
+   deduplicated Reddit-0.25 graph, D = 256, 8x8 (nrb = W = 7,281): the
+   paper's composed pipeline from three hand kernels,
+   ops.sddmm(impl="cuda") -> logits / sqrt(D) -> ops.row_softmax ->
+   the dense-W SpMM kernel over the probability tiles with B = v, held
+   against ops.csr_attention(impl="cuda") (the fused kernel); the row
+   softmax kernel against its plain version (chunked), padded tiles
+   +0.0, a second launch bit-equal, and the probabilities gathered back
+   to CSR order against baselines.row_softmax on the CSR logits; times
+   of the kernel, its plain version and torch.sparse.softmax on a COO
+   tensor of the real edges' logits (the one PyTorch call that computes
+   the same function; the port never calls it) beside the bound (logits
+   and mask read once, probabilities written once). On small graphs:
+   ops.spmm ("cuda", "ragged") and ops.csr_attention("ragged") against
+   impl="ref", and the row softmax kernel on its traps at 8x8, 16x8 and
+   8x16 (masked rows and row blocks, NaN/inf on masked cells, logits x5
+   and +-80, a row of finfo.min logits, mask values -1/0.5/2; W = 1, 3
+   and 2048).
+11. Minibatch SAGE training through BatchScheduler, at full width: the
+   phase-3 model on train_gnn.make_data's Reddit-0.25 data, one epoch of
+   56 steps of 1,024 sampled rows (train_gnn.minibatch_rows, seed 1)
+   through one BatchScheduler (probe budget 2,000 ms; AutoSage with
+   probe_iters 2, probe_cap_ms 200, probe_frac 0.25), each step's
+   synchronized wall time fed to observe, finalize() pinning the bucket
+   decisions; step 1's gradients against the sage=None reference within
+   1e-3 * |ref| + 1e-3 * max|ref|. A replay-only BatchScheduler replays
+   every decision of the 56 row sets and gives step-1 gradients bit-equal
+   to the deciding scheduler's. Then ragged_ell_cuda and merge_path_cuda
+   are pinned in turn through the bucket entries of spmm and spmm_bwd_b
+   for 3 steps each (each step launches its kernel and matches the
+   reference), and a drift leg runs regime_shift_stream(64, 1024,
+   seed=0) at F = 256 with every scheduled aggregation timed by CUDA
+   events and fed to observe (re-probes <= flags; no probe starts once
+   the budget is spent).
+
+The main path is every forward of phases 3, 4 and 6, every training
+step of phases 8, 9 and 11 and the ops chain of phase 10, through the
+entry points a user calls: decide (probes included) + two forwards or
+the training steps, the replay run, and each pinned run. The launch counters of every kernel are set to 0 just
 before each of these runs and read just after it; a kernel's
 ``launches`` is the sum over them, and every kernel must have launched.
 The host/device breakdown of a warm forward is timed outside these runs
@@ -108,6 +143,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -136,8 +172,10 @@ REPLACES = {
     "sddmm_block_ell": "src/repro/kernels/sddmm_pallas.py:53",
     "sddmm_ragged_ell": "src/repro/kernels/sddmm_pallas.py:109",
     "sddmm_merge_path": "src/repro/kernels/sddmm_pallas.py:199",
+    "row_softmax_block_ell": "src/repro/kernels/softmax_pallas.py:31",
 }
-KERNEL_SOURCES = ("spmm", "attention", "sddmm")  # src/repro_torch/csrc/<name>.cu
+# src/repro_torch/csrc/<name>.cu
+KERNEL_SOURCES = ("spmm", "attention", "sddmm", "softmax")
 GRAD_RTOL = 1e-3  # training gradients: long fp32 chains in another order
 LR = 0.05  # train_gnn's SGD step
 SDDMM_FAMILY_KERNEL = {
@@ -208,9 +246,10 @@ def check_equal(name, a, b) -> None:
 def _kernel_modules():
     from repro_torch.kernels import attention as ka
     from repro_torch.kernels import sddmm as ksd
+    from repro_torch.kernels import softmax as ksm
     from repro_torch.kernels import spmm as ks
 
-    return ks, ka, ksd
+    return ks, ka, ksd, ksm
 
 
 def reset_launches() -> None:
@@ -1350,8 +1389,402 @@ def gat_train_phase(graph, device, workdir: Path) -> dict:
     return totals
 
 
+# ----------------------------------------------------------- phase 10
+def _softmax_traps(rb, bc, w, seed):
+    """(logits, mask) on the row softmax's traps: row block 0 fully
+    masked, row 1 of block 2 fully masked inside a live block, a row of
+    finfo.min logits (row 3 of block 2: the Pallas kernel and hence the
+    port give all zeros there), NaN and +-inf logits on masked cells,
+    logits x5 and +-80, mask values -1, 0.5 and 2 (the test is > 0)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shape = (6 if w < 2048 else 3, w, rb, bc)
+    vals = (rng.standard_normal(shape) * 5).astype(np.float32)
+    vals[1] = rng.choice([-80.0, 80.0], size=shape[1:])
+    mask = rng.choice([-1.0, 0.0, 0.5, 1.0, 2.0], size=shape,
+                      p=[0.1, 0.35, 0.15, 0.3, 0.1]).astype(np.float32)
+    mask[0] = 0.0
+    mask[2, :, 1, :] = 0.0
+    vals[2, :, 3, :] = np.finfo(np.float32).min
+    mask[2, :, 3, :2] = 1.0
+    dead = mask <= 0
+    for bad in (np.nan, np.inf, -np.inf):
+        vals[dead & (rng.random(shape) < 0.3)] = bad
+    return vals, mask
+
+
+def _masked_cells_plus_zero(name, out, mask) -> None:
+    """Every cell whose mask is <= 0 holds +0.0 (in chunks)."""
+    import torch
+
+    o, m = out.reshape(-1), mask.reshape(-1)
+    step = 1 << 26
+    for i in range(0, o.numel(), step):
+        oc, dead = o[i:i + step], m[i:i + step] <= 0
+        if bool(((oc != 0) | torch.signbit(oc))[dead].any()):
+            raise AssertionError(f"{name}: a masked cell is not +0.0")
+
+
+def softmax_edge_cases(device) -> None:
+    """The row softmax kernel against its plain version on its traps, at
+    every blocking and W = 1, 3 and 2048; two launches bit-equal."""
+    import torch
+
+    from repro_torch.kernels import softmax as ksm
+
+    for rb, bc in BLOCKINGS:
+        for w in (1, 3, 2048):
+            tag = f"row softmax traps rb={rb} bc={bc} W={w}"
+            vals, mask = (torch.from_numpy(a).to(device)
+                          for a in _softmax_traps(rb, bc, w, seed=w + rb))
+            got = ksm.row_softmax_block_ell(vals, mask)
+            sync(device)
+            check_close(tag, got, ksm.row_softmax_block_ell_plain(vals, mask))
+            _masked_cells_plus_zero(tag, got, mask)
+            if bool(got[2, :, 3].any()):
+                raise AssertionError(f"{tag}: the finfo.min row is not all zeros")
+            check_equal(f"{tag} run twice", got, ksm.row_softmax_block_ell(vals, mask))
+    log("row softmax traps: masked rows and row blocks, NaN/inf on masked cells, logits "
+        "x5 and +-80, a finfo.min row (all zeros), mask values -1/0.5/2; W=1,3,2048; "
+        "blockings 8x8/16x8/8x16: ok")
+
+
+def ops_edge_cases(device) -> None:
+    """ops.spmm ("cuda", "ragged") and ops.csr_attention("ragged") on the
+    edge-case graphs against impl="ref"."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.sparse import CSR, hub_skew, single_hub
+
+    rng = np.random.default_rng(5)
+    deg = np.r_[rng.integers(1, 6, 8), np.zeros(24, np.int64), rng.integers(1, 6, 21)]
+    empty = CSR(np.r_[0, np.cumsum(deg)].astype(np.int32),
+                rng.integers(0, 70, int(deg.sum())).astype(np.int32),
+                rng.standard_normal(int(deg.sum())).astype(np.float32), deg.size, 70)
+    graphs = (("empty-blocks", empty), ("single-hub", single_hub(HUB_N, nnz_frac=0.9, seed=1)),
+              ("hub-skew", hub_skew(3000, 4, 0.05, 300, seed=2)))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        for tag, csr in graphs:
+            for f in (41, 256):
+                b = torch.randn(csr.n_cols, f, generator=torch.Generator().manual_seed(f))
+                b = b.to(device)
+                want = ops.spmm(csr, b, impl="ref")
+                for impl in ("cuda", "ragged"):
+                    check_close(f"ops.spmm {tag} F={f} impl={impl}", ops.spmm(csr, b, impl=impl),
+                                want)
+            dedup = CSR(csr.rowptr, csr.colind, None, csr.n_rows, csr.n_cols).dedup_edges()
+            q, k, v = _qkv(dedup, 64, device, seed=17)
+            check_close(f"ops.csr_attention {tag} impl=ragged",
+                        ops.csr_attention(dedup, q, k, v, impl="ragged"),
+                        ops.csr_attention(dedup, q, k, v, impl="ref"))
+    log("ops edge cases: spmm cuda/ragged (F=41,256) and csr_attention ragged against "
+        "impl='ref' on empty row blocks, a single hub and hub_skew: ok")
+
+
+def ops_phase(graph, device, reps: int) -> tuple:
+    """Phase 10. Returns (the row softmax kernel's record, the launch
+    counts of its counted runs)."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import registry
+    from repro_torch.core.probe import time_callable
+    from repro_torch.kernels import baselines as kb
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import softmax as ksm
+    from repro_torch.kernels import spmm as ks
+
+    softmax_edge_cases(device)
+    ops_edge_cases(device)
+    totals: dict = {}
+    q, k, v = _qkv(graph, D_ATTN, device, seed=13)
+    t0 = time.perf_counter()
+    aux = registry._prep_sddmm_dense(graph, 8, 8)
+    colblk, mask, edge_flat = (torch.from_numpy(aux[key]).to(device)
+                               for key in ("colblk", "mask", "edge_flat"))
+    del aux
+    nrb, w = colblk.shape
+    sync(device)
+    log(f"dense-W 8x8 mask and edge index: nrb={nrb} W={w} "
+        f"({time.perf_counter() - t0:.1f} s host conversion + upload)")
+    scale = D_ATTN ** -0.5
+
+    def chain():
+        ts = [time.perf_counter()]
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            logits = ops.sddmm(graph, q, k, impl="cuda")
+            logits.mul_(scale)
+            sync(device)
+            ts.append(time.perf_counter())
+            probs = ops.row_softmax(logits, mask)
+            sync(device)
+            ts.append(time.perf_counter())
+        out = ks.spmm_block_ell(colblk, probs, v, n_rows=graph.n_rows)
+        sync(device)
+        ts.append(time.perf_counter())
+        log("ops chain seconds: sddmm (host conversion included) "
+            f"{ts[1] - ts[0]:.2f}, row_softmax {ts[2] - ts[1]:.3f}, dense-W spmm "
+            f"{ts[3] - ts[2]:.3f}")
+        return logits, probs, out
+
+    (logits, probs, composed), got = counted(
+        "ops chain: sddmm -> row_softmax -> dense-W spmm", chain, totals, device)
+    for name in ("sddmm_block_ell", "row_softmax_block_ell", "spmm_block_ell"):
+        if got[name] != 1:
+            raise AssertionError(f"ops chain: {name} launched {got[name]} times")
+    want = ksm.row_softmax_block_ell_plain(logits, mask)
+    err = check_close("row_softmax_block_ell vs plain", probs, want)
+    del want
+    _empty_cache(device)
+    _masked_cells_plus_zero("row_softmax_block_ell at Reddit-0.25", probs, mask)
+    check_equal("row_softmax_block_ell run twice", probs, ksm.row_softmax_block_ell(logits, mask))
+    _empty_cache(device)
+    rowptr, colind = (torch.from_numpy(a).to(device) for a in (graph.rowptr, graph.colind))
+    logits_csr = logits.view(-1).index_select(0, edge_flat)
+    probs_csr = kb.row_softmax({"rowptr": rowptr, "colind": colind}, logits_csr)
+    err_csr = check_close("probabilities in CSR order vs baselines.row_softmax",
+                          probs.view(-1).index_select(0, edge_flat), probs_csr)
+    log(f"row softmax at Reddit-{SCALE}: max |kernel - plain| {err:.3e}; masked and padded "
+        f"cells +0.0; second launch bit-equal; in CSR order max |kernel - "
+        f"baselines.row_softmax| {err_csr:.3e}")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        fused, _ = counted("ops.csr_attention(impl='cuda')",
+                           lambda: ops.csr_attention(graph, q, k, v, impl="cuda"), totals,
+                           device)
+    err_pipe = check_close("composed sddmm -> row_softmax -> spmm vs fused attention",
+                           composed, fused)
+    log(f"paper's composed pipeline from three hand kernels vs the fused kernel: max "
+        f"|composed - fused| {err_pipe:.3e}")
+    del fused, composed, edge_flat
+    _empty_cache(device)
+
+    ms = time_callable(lambda: ksm.row_softmax_block_ell(logits, mask), device,
+                       iters=reps).median_ms
+    plain_ms = time_callable(lambda: ksm.row_softmax_block_ell_plain(logits, mask), device,
+                             iters=1).median_ms
+    _empty_cache(device)
+    rows = torch.repeat_interleave(torch.arange(graph.n_rows, device=device),
+                                   torch.diff(rowptr.long()))
+    with warnings.catch_warnings():  # torch warns that it checks no invariants
+        warnings.simplefilter("ignore", UserWarning)
+        a_lib = torch.sparse_coo_tensor(torch.stack([rows, colind.long()]), logits_csr,
+                                        (graph.n_rows, graph.n_cols), is_coalesced=True,
+                                        check_invariants=False)
+    del rows
+    try:
+        lib_out = torch.sparse.softmax(a_lib, 1)
+        lib_err = float((lib_out.values() - probs_csr).abs().max())
+        del lib_out
+        lib_ms = time_callable(lambda: torch.sparse.softmax(a_lib, 1), device,
+                               iters=reps).median_ms
+        log(f"torch.sparse.softmax (COO, dim 1) on the {graph.nnz} real edges: {lib_ms} ms, "
+            f"max |library - baselines.row_softmax| {lib_err:.3e}")
+    except RuntimeError as exc:  # the yardstick only: the port never calls it
+        lib_ms = None
+        log(f"torch.sparse.softmax refused on {device}: {exc}")
+    del a_lib
+    byts = 3 * logits.numel() * 4  # logits and mask read once, probabilities written once
+    flops = 4.0 * graph.nnz  # max, exp, sum, divide per live cell
+    record = {
+        "name": "row_softmax_block_ell", "route": "cuda",
+        "source": "src/repro_torch/csrc/softmax.cu",
+        "replaces": REPLACES["row_softmax_block_ell"], "launches": 0, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(byts / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3,
+        "bound_by": "bytes" if byts / HBM_BYTES_PER_S >= flops / FP32_FLOPS else "operations",
+        "library_ms": lib_ms,
+    }
+    log(f"  row_softmax_block_ell 8x8 D={D_ATTN}: {json.dumps(record)}")
+    log(f"ops entry point launches (sum of the counted runs): {json.dumps(totals)}")
+    return record, totals
+
+
+# ----------------------------------------------------------- phase 11
+MINIBATCH = 1024  # examples/train_gnn.py --minibatch 1024
+PROBE_BUDGET_MS = 2000.0  # its --probe-budget-ms default
+PIN_STEPS = 3
+DRIFT_GRAPHS = 64
+
+
+def _minibatch_scheduler(device, path, replay=False):
+    from repro_torch.core import AutoSage, BatchScheduler, ScheduleCache
+
+    sage = AutoSage(device=device, cache=ScheduleCache(path=path, replay_only=replay),
+                    probe_iters=2, probe_cap_ms=200, probe_frac=0.25)
+    return BatchScheduler(sage, probe_budget_ms=PROBE_BUDGET_MS)
+
+
+def _pin_minibatch(family, graph, rows_seq, device, path, alpha) -> None:
+    """Bucket entries choosing ``family`` (8x8, tile_slots 8) for the
+    spmm and spmm_bwd_b buckets of the first PIN_STEPS row sets."""
+    from repro_torch.core import (
+        HardwareSpec,
+        InputFeatures,
+        ScheduleBucket,
+        ScheduleCache,
+        device_sig,
+        registry,
+    )
+    from repro_torch.models.gnn import norm_csr
+
+    pins = ScheduleCache(path=str(path))
+    hw, dsig = HardwareSpec.current(device), device_sig(device)
+    for rows in rows_seq[:PIN_STEPS]:
+        a = norm_csr(graph.row_slice(rows))
+        for op, g in (("spmm", a), ("spmm_bwd_b", a.transpose_with_perm()[0])):
+            feat = InputFeatures.from_csr(g, D_ATTN, op)
+            names = [v.full_name() for v in registry.candidates(feat, hw, device)
+                     if v.name == family and v.knobs.get("rb") == 8
+                     and v.knobs.get("bc") == 8 and v.knobs.get("tile_slots", 8) == 8]
+            if len(names) != 1:
+                raise AssertionError(f"{family} for {op}: candidates {names}")
+            sig = ScheduleBucket.from_features(feat, dsig).sig()
+            pins.put(ScheduleCache.bucket_key(dsig, sig, D_ATTN, op, alpha),
+                     {"choice": names[0], "probe_ms": {}, "estimates_ms": {}})
+
+
+def minibatch_phase(graph, device, workdir: Path) -> dict:
+    """Phase 11. Returns the launch counts summed over its counted runs."""
+    import copy
+
+    import torch
+
+    from repro_torch.core.probe import _timed_ms
+    from repro_torch.models.gnn import SAGE, norm_csr
+    from repro_torch.sparse import regime_shift_stream
+    from repro_torch.train_gnn import make_data, minibatch_rows, minibatch_step
+
+    feats, labels = make_data(graph, N_CLASSES, IN_DIM, seed=0)
+    x, y = torch.from_numpy(feats).to(device), torch.from_numpy(labels).to(device)
+    model = SAGE(IN_DIM, N_CLASSES, seed=0, device=device)
+    init = copy.deepcopy(model)
+    steps = graph.n_rows // MINIBATCH
+    rows_seq = minibatch_rows(graph.n_rows, MINIBATCH, steps, seed=1)
+    sub = graph.row_slice(rows_seq[0])
+    log(f"minibatch: {steps} steps of {MINIBATCH} rows; step 1's sub-adjacency "
+        f"{sub.n_rows} x {sub.n_cols}, {sub.nnz} edges")
+    ref_grads = []
+    t0 = time.perf_counter()
+    for rows in rows_seq[:PIN_STEPS]:
+        m = copy.deepcopy(init)
+        minibatch_step(m, graph, x, y, rows, None, update=False)
+        ref_grads.append(_grads(m))
+    log(f"reference minibatch gradients (sage=None) of steps 1-{PIN_STEPS}: "
+        f"{time.perf_counter() - t0:.2f} s")
+    totals: dict = {}
+    path = str(workdir / "minibatch.json")
+    bs = _minibatch_scheduler(device, path)
+    losses, step_ms = [], []
+
+    def epoch():
+        with bs:  # finalize() pins every bucket decision at the end
+            for i, rows in enumerate(rows_seq):
+                loss, ms = minibatch_step(model, graph, x, y, rows, bs, LR)
+                if not math.isfinite(loss):
+                    raise AssertionError(f"minibatch step {i + 1}: loss {loss}")
+                losses.append(loss)
+                step_ms.append(ms)
+                if i == 0:
+                    err = _check_grads("minibatch step 1", model, _grads(model), ref_grads[0])
+                    log(f"minibatch step 1: loss {loss:.6f}, max |grad - reference| "
+                        f"{err:.3e}")
+
+    t0 = time.perf_counter()
+    counted(f"minibatch epoch ({steps} steps)", epoch, totals, device, grad=True)
+    log(f"minibatch epoch: {time.perf_counter() - t0:.1f} s; losses {losses}")
+    log(f"minibatch step ms: first {step_ms[0]:.1f}, median of the rest "
+        f"{statistics.median(step_ms[1:] or step_ms):.1f}, max {max(step_ms):.1f}")
+    log(f"BatchScheduler stats: {json.dumps(bs.stats())}")
+    for row in bs.bucket_stats():
+        log(f"  bucket {row['op']} {row['bucket']}: hits={row['hits']} probed={row['probed']} "
+            f"choice={row['choice']} probe_charge_ms={row['probe_charge_ms']} "
+            f"reprobes={row['reprobes']}")
+
+    finals = {st.key: st.current().choice for st in bs._buckets.values()}
+    bs.auto_pump = False  # the deciding scheduler now serves its pinned decisions only
+    rbs = _minibatch_scheduler(device, path, replay=True)
+    t0 = time.perf_counter()
+    for rows in rows_seq:
+        a = norm_csr(graph.row_slice(rows))
+        rbs.decide(a, D_ATTN, "spmm")
+        rbs.decide(a.transpose_with_perm()[0], D_ATTN, "spmm_bwd_b")
+    bad = [e for e in rbs.trace if e["choice"] != finals[e["key"]] or e["source"] != "bucket-cache"]
+    if bad or len(rbs.trace) != 2 * steps or rbs.stats()["probes_run"]:
+        raise AssertionError(f"minibatch replay: {len(bad)} decisions differ, "
+                             f"{rbs.stats()}")
+    log(f"replay-only BatchScheduler: all {len(rbs.trace)} decisions replayed from "
+        f"{len(set(finals))} bucket entries ({time.perf_counter() - t0:.1f} s)")
+    grads = {}
+    for label, sched in (("deciding", bs), ("replay-only", rbs)):
+        m = copy.deepcopy(init)
+        counted(f"minibatch step 1, {label} scheduler",
+                lambda m=m, s=sched: minibatch_step(m, graph, x, y, rows_seq[0], s, update=False),
+                totals, device, grad=True)
+        grads[label] = _grads(m)
+    for n, g_r, g in zip([n for n, _ in model.named_parameters()], grads["replay-only"],
+                         grads["deciding"]):
+        check_equal(f"minibatch replayed grad {n}", g_r, g)
+    log("replay-only BatchScheduler: step-1 gradients bit-equal to the deciding one's")
+
+    for family in ("ragged_ell_cuda", "merge_path_cuda"):
+        pinned_path = workdir / f"minibatch_pinned_{family}.json"
+        _pin_minibatch(family, graph, rows_seq, device, pinned_path, bs.sage.alpha)
+        pbs = _minibatch_scheduler(device, str(pinned_path), replay=True)
+        kernel = FAMILY_KERNEL[family]
+        errs = []
+        for i, rows in enumerate(rows_seq[:PIN_STEPS]):
+            m = copy.deepcopy(init)
+            _, got = counted(f"{family} pinned minibatch step {i + 1}",
+                             lambda m=m, r=rows: minibatch_step(m, graph, x, y, r, pbs,
+                                                                update=False),
+                             totals, device, grad=True)
+            if got[kernel] < 2:
+                raise AssertionError(f"{family}: {kernel} launched {got[kernel]} times")
+            errs.append(_check_grads(f"{family} pinned step {i + 1}", m, _grads(m),
+                                     ref_grads[i]))
+        log(f"pinned {family} for spmm and spmm_bwd_b: {kernel} launched every step; max "
+            f"|grad - reference| {max(errs):.3e}")
+        _empty_cache(device)
+
+    stream = regime_shift_stream(DRIFT_GRAPHS, MINIBATCH, seed=0)
+    dbs = _minibatch_scheduler(device, None)
+    gen = torch.Generator().manual_seed(21)
+    observed = []
+
+    def drift():
+        for g in stream:
+            b = torch.randn(g.n_cols, D_ATTN, generator=gen).to(device)
+            d = dbs.decide(g, D_ATTN, "spmm")
+            run_ = dbs.build_runner(g, d)
+            observed.append(_timed_ms(lambda: run_(b), device))  # CUDA events on the card
+            dbs.observe(dbs.last_bucket, observed[-1])
+
+    counted(f"drift leg (regime_shift_stream({DRIFT_GRAPHS}, {MINIBATCH}))", drift, totals,
+            device)
+    s = dbs.stats()
+    charges = [r["probe_charge_ms"] for r in dbs.bucket_stats()]
+    log(f"drift leg: {json.dumps(s)}; observed ms first/last "
+        f"{observed[0]:.3f}/{observed[-1]:.3f}")
+    if s["drift_reprobes"] > s["drift_flags"] or s["drift_flips"] > s["drift_reprobes"]:
+        raise AssertionError(f"drift counters: {s}")
+    if s["probe_spent_ms"] > s["probe_budget_ms"] + max(charges, default=0.0):
+        raise AssertionError(f"a probe started after the budget was spent: {s}")
+    log(f"minibatch training launches (sum of the counted runs): {json.dumps(totals)}")
+    return totals
+
+
 def run(device, scale: float = SCALE, reps: int = 5) -> list:
-    """Phases 2-9 on ``device``; returns the kernels records."""
+    """Phases 2-11 on ``device``; returns the kernels records."""
     from repro_torch.core import registry
     from repro_torch.models.gnn import norm_csr
     from repro_torch.sparse import reddit_like
@@ -1402,6 +1835,11 @@ def run(device, scale: float = SCALE, reps: int = 5) -> list:
                              device, reps))
         add(counts, phase("phase 8 (SAGE training)", sage_train_phase, graph, device, work))
         add(counts, phase("phase 9 (GAT training)", gat_train_phase, dedup, device, work))
+        record, more = phase("phase 10 (ops entry point)", ops_phase, dedup, device, reps)
+        records[record["name"]] = record
+        add(counts, more)
+        add(counts, phase("phase 11 (minibatch SAGE training)", minibatch_phase, graph, device,
+                          work))
     log(f"main-path launches (sum of the counted runs): {json.dumps(counts)}")
     missing = [name for name in records if counts.get(name, 0) == 0]
     if missing:

@@ -4,10 +4,12 @@ Pipeline: features -> roofline estimate shortlist -> on-device micro-probe
 on an induced subgraph -> guardrail (never regress, Prop. 1) -> persistent
 cache with deterministic replay.
 """
+from repro_torch.core.batch import BatchScheduler
 from repro_torch.core.cache import CacheKey, ReplayMiss, ScheduleCache, parse_key
 from repro_torch.core.features import (
     HardwareSpec,
     InputFeatures,
+    ScheduleBucket,
     device_sig,
     resolve_device,
 )
@@ -18,6 +20,7 @@ from repro_torch.core.scheduler import AutoSage, Decision, ProbeOutcome
 __all__ = [
     "AttentionDecision",
     "AutoSage",
+    "BatchScheduler",
     "CacheKey",
     "Decision",
     "GuardrailDecision",
@@ -25,6 +28,7 @@ __all__ = [
     "InputFeatures",
     "ProbeOutcome",
     "ReplayMiss",
+    "ScheduleBucket",
     "ScheduleCache",
     "apply_guardrail",
     "device_sig",

@@ -15,9 +15,13 @@ across runs (AUTOSAGE_REPLAY_ONLY=1). Keys this version does not parse
 (e.g. the JAX package's ``quarantine|...`` records) are carried along
 untouched.
 
-Every put writes the file at once. The deferred-flush context and the
-fleet mode (lockfile-guarded load-merge-write on every flush) wait for
-the port's batch and fleet slices.
+A put outside ``with cache:`` writes the file at once; inside it, puts
+only mark the cache dirty and one atomic write happens on exit (or on
+`flush()`), so a decision stream (the batch scheduler) rewrites the file
+once instead of once per put. Per-entry running statistics (hits and
+observed runtimes, schema v4) are deferred-dirty always. The fleet mode
+(lockfile-guarded load-merge-write on every flush, hit-count-sum across
+processes) and `peer_entries` wait for the port's fleet slice.
 """
 from __future__ import annotations
 
@@ -119,6 +123,8 @@ class ScheduleCache:
         self.replay_only = replay_only
         self._lock = threading.RLock()
         self._data: Dict[str, Dict[str, Any]] = {}
+        self._dirty = False
+        self._defer_depth = 0
         if self.path and self.path.exists():
             self._data = self._load_tolerant()
 
@@ -145,6 +151,13 @@ class ScheduleCache:
     def key(device_sig: str, graph_sig: str, f: int, op: str, alpha: float) -> str:
         return CacheKey("exact", device_sig, graph_sig, f, op, alpha).format()
 
+    @staticmethod
+    def bucket_key(device_sig: str, bucket_sig: str, f: int, op: str, alpha: float) -> str:
+        return CacheKey("bucket", device_sig, bucket_sig, f, op, alpha).format()
+
+    def contains(self, key: str) -> bool:
+        return key in self._data
+
     def get(self, key: str) -> Optional[Dict[str, Any]]:
         entry = self._data.get(key)
         if entry is None and self.replay_only:
@@ -164,7 +177,46 @@ class ScheduleCache:
                 # zero the hits accumulated so far
                 new["stats"]["hits"] = old.get("stats", {}).get("hits", 0)
             self._data[key] = new
-            self._flush()
+            self._dirty = True
+            if self._defer_depth == 0:
+                self._flush()
+
+    # ---- running stats (schema v4) -----------------------------------
+    def add_hits(self, key: str, n: int = 1) -> None:
+        """Record ``n`` decide hits served by ``key``. Deferred-dirty:
+        traffic bookkeeping never rewrites the file by itself."""
+        if n <= 0 or self.replay_only:
+            return
+        with self._lock:
+            entry = self._data.get(key)
+            if not isinstance(entry, dict):
+                return
+            entry["stats"]["hits"] = entry["stats"].get("hits", 0) + n
+            self._dirty = True
+
+    def update_stats(self, key: str, **fields: Any) -> None:
+        """Merge the non-None observation fields (ewma_ms, obs,
+        probe_est_ms, waste_at_probe, probed_at, probes) into the entry's
+        stats. Deferred-dirty, like add_hits; ``hits`` goes through
+        add_hits."""
+        if "hits" in fields:
+            raise ValueError("use add_hits() for traffic counts")
+        if self.replay_only:
+            return
+        with self._lock:
+            entry = self._data.get(key)
+            if not isinstance(entry, dict):
+                return
+            for k, v in fields.items():
+                if v is not None:
+                    entry["stats"][k] = v
+            self._dirty = True
+
+    def stats(self, key: str) -> Optional[Dict[str, Any]]:
+        entry = self._data.get(key)
+        if not isinstance(entry, dict):
+            return None
+        return entry.get("stats")
 
     def keys_for_op(self, op: str, kind: Optional[str] = None) -> List[str]:
         """All cached keys for one op (optionally one key kind)."""
@@ -175,9 +227,28 @@ class ScheduleCache:
                 out.append(k)
         return out
 
+    # ---- deferred flushing -------------------------------------------
+    def __enter__(self) -> "ScheduleCache":
+        with self._lock:
+            self._defer_depth += 1
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        with self._lock:
+            self._defer_depth = max(0, self._defer_depth - 1)
+            if self._defer_depth == 0 and self._dirty:
+                self._flush()
+
+    def flush(self) -> None:
+        """Write now if dirty (atomic rename); safe to call any time."""
+        with self._lock:
+            if self._dirty:
+                self._flush()
+
     def _flush(self) -> None:
         """Atomic write of the whole cache (temp file + rename)."""
         if not self.path:
+            self._dirty = False
             return
         # chaos hook BEFORE mkstemp: an injected flush fault leaves no
         # temp file behind
@@ -186,6 +257,7 @@ class ScheduleCache:
         with os.fdopen(fd, "w") as f:
             json.dump(self._data, f, indent=1, sort_keys=True)
         os.replace(tmp, self.path)
+        self._dirty = False
 
     def __len__(self) -> int:
         return len(self._data)

@@ -3,12 +3,15 @@ device caps") and the device's roofline profile.
 
 Port of repro/core/features.py. `InputFeatures` is the same dataclass
 with the same values, so the device-neutral half of a cache entry reads
-the same in both packages. `HardwareSpec.current()` and `device_sig()`
-read torch's CUDA device instead of `jax.devices()`.
+the same in both packages, and `ScheduleBucket.sig()` gives the JAX
+package's string for the same graph, F and op, so bucket keys read the
+same too. `HardwareSpec.current()` and `device_sig()` read torch's CUDA
+device instead of `jax.devices()`.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 from typing import Dict
 
@@ -277,9 +280,86 @@ def _block_padding_estimate(csr: CSR) -> tuple:
 
 def waste_bin(waste: float) -> int:
     """Monotone 3-level quantization of padding_waste: 0 (< 0.5),
-    1 (< 0.75), 2 (>= 0.75)."""
+    1 (< 0.75), 2 (>= 0.75). The drift detector (core/batch.py) compares
+    live inputs' waste against the bin a bucket was probed under."""
     if waste >= 0.75:
         return 2
     if waste >= 0.5:
         return 1
     return 0
+
+
+def balance_bin(balance: float) -> int:
+    """Monotone 3-level quantization of deg_max/deg_mean: 0 (< 32),
+    1 (< 256), 2 (>= 256): hub-dominated inputs (merge-path territory)
+    land in a bucket apart from uniform ones."""
+    if balance >= 256.0:
+        return 2
+    if balance >= 32.0:
+        return 1
+    return 0
+
+
+# ---------------------------------------------------------------------
+# Schedule buckets: coarse feature canonicalization for batched decide.
+# Minibatched training serves thousands of induced subgraphs per epoch
+# that differ only in which rows got sampled, and the best mapping is
+# stable across coarse feature regimes; a bucket keeps the features that
+# flip decisions (op, F, device and binned shape statistics), so
+# near-identical subgraphs share one probed decision.
+
+def _log2_bin(x: float) -> int:
+    """floor(log2(x)) with x <= 1 clamped to bin 0; monotone in x."""
+    return int(math.floor(math.log2(x))) if x > 1.0 else 0
+
+
+def _log10_bin(x: float) -> int:
+    """floor(log10(x)) for densities in (0, 1]; 0 maps below every real
+    density; monotone in x."""
+    if x <= 0.0:
+        return -99
+    return max(-12, int(math.floor(math.log10(x))))
+
+
+@dataclasses.dataclass(frozen=True)
+class ScheduleBucket:
+    """Canonical coarse regime of one (graph, F, op) on one device.
+
+    Hashable and order-free: equal buckets (and only equal buckets) share
+    a batch-scheduler decision and a bucket-level cache entry."""
+
+    op: str
+    f: int
+    device: str  # device_sig()
+    rows_bin: int  # floor(log2(n_rows))
+    nnz_bin: int  # floor(log2(nnz))
+    skew_bin: int  # floor(log2(skew))
+    density_bin: int  # floor(log10(density))
+    dup_edges: bool  # flips fused-attention applicability
+    waste_bin: int = 0  # waste_bin(padding_waste)
+    balance_bin: int = 0  # balance_bin(deg_max / deg_mean)
+
+    @staticmethod
+    def from_features(feat: InputFeatures, device: str) -> "ScheduleBucket":
+        return ScheduleBucket(
+            op=feat.op,
+            f=feat.f,
+            device=device,
+            rows_bin=_log2_bin(feat.n_rows),
+            nnz_bin=_log2_bin(feat.nnz),
+            skew_bin=_log2_bin(feat.skew),
+            density_bin=_log10_bin(feat.density),
+            dup_edges=feat.dup_edges,
+            waste_bin=waste_bin(feat.padding_waste),
+            balance_bin=balance_bin(feat.balance()),
+        )
+
+    def sig(self) -> str:
+        """The binned shape regime, as it stands inside bucket-level cache
+        keys (the key carries device, F, op and alpha as fields of their
+        own)."""
+        dup = "dup" if self.dup_edges else "simple"
+        return (
+            f"r{self.rows_bin}.z{self.nnz_bin}.s{self.skew_bin}"
+            f".d{self.density_bin}.w{self.waste_bin}.b{self.balance_bin}.{dup}"
+        )

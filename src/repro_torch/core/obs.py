@@ -14,7 +14,10 @@ Port of the part of repro/core/obs.py that the SpMM slice calls:
             ``autosage_probe_ms``, ``autosage_prepare_ms``, ...). It
             always counts in memory and never writes files.
   scorecard every probe feeds (candidate, est_ms, measured_ms) pairs
-            into ``autosage_est_abs_err_ms`` / ``autosage_est_rel_err``.
+            into ``autosage_est_abs_err_ms`` / ``autosage_est_rel_err``;
+            the batch scheduler's ``observe`` feeds live runtimes.
+  counters  `ScopedCounter`: a per-object count mirrored into the
+            registry (the batch scheduler's stream counters).
 
 This module imports nothing from the rest of the package
 (sparse/csr.py and core/cache.py sit below it in the import graph).
@@ -142,6 +145,24 @@ class MetricsRegistry:
 
 
 REGISTRY = MetricsRegistry()
+
+
+class ScopedCounter:
+    """A per-instance counter mirrored into the process registry, the one
+    accounting path for per-object stats such as BatchScheduler's.
+    ``value`` is the instance-local total (what `stats()` reports); every
+    inc() also lands on the named registry counter with the given labels,
+    so the process-wide series aggregate across instances."""
+
+    __slots__ = ("name", "value")
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self.value = 0
+
+    def inc(self, n: int = 1, **labels: Any) -> None:
+        self.value += n
+        REGISTRY.inc(self.name, n, **labels)
 
 
 def _op_family(op: str) -> str:

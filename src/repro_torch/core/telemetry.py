@@ -1,11 +1,12 @@
 """CSV + JSON telemetry (paper §10: every CSV gets a .meta.json sidecar
 with device, software versions, and the AUTOSAGE_* env snapshot).
 
-Port of repro/core/telemetry.py for the SpMM and attention slices: the
-CSV writer, the per-op decide/prepare stream and the attention-decision
-stream. JSONL streams keep one unbuffered
-O_APPEND handle per process and write every record as one write() of one
-full line, so concurrent writer processes interleave whole records.
+Port of repro/core/telemetry.py for the SpMM, attention and batch
+slices: the CSV writer, the per-op decide/prepare stream, the
+attention-decision stream and the batch-scheduler stream. JSONL streams
+keep one unbuffered O_APPEND handle per process and write every record
+as one write() of one full line, so concurrent writer processes
+interleave whole records.
 """
 from __future__ import annotations
 
@@ -165,4 +166,18 @@ def emit_attention_decision(decision, device: torch.device) -> Optional[str]:
         },
         device,
     )
+    return path
+
+
+def emit_batch_event(event: Dict, device: torch.device) -> Optional[str]:
+    """Batch-scheduler stream (batch_stream.jsonl): per-decide events,
+    bucket probes, drift flags and finalize summaries, one record each.
+
+    No-op unless AUTOSAGE_TELEMETRY_DIR is set: the batched decide hot
+    path touches no file by default. Returns the path written."""
+    out = os.environ.get("AUTOSAGE_TELEMETRY_DIR")
+    if not out:
+        return None
+    path = str(Path(out) / "batch_stream.jsonl")
+    append_jsonl(path, event, device)
     return path

@@ -2,7 +2,8 @@
 AutoSAGE-scheduled sparse aggregation.
 
 Port of repro/models/gnn.py (``init_gnn``, ``_norm_csr``,
-``sage_forward``, ``init_gat``, ``gat_layer``):
+``sage_forward``, ``sage_minibatch_forward``, ``init_gat``,
+``gat_layer``):
 
     GraphSAGE (mean aggregator): H' = act(A_norm @ H @ W_agg + H @ W_self)
     GAT-style CSR attention:     H' = CSR_attention(A, HW_q, HW_k, HW_v)
@@ -11,8 +12,9 @@ Port of repro/models/gnn.py (``init_gnn``, ``_norm_csr``,
 With a scheduler and gradients enabled, `SAGE` and `GAT` train through
 it: every forward and backward sparse op is a scheduled decision under
 its own op string (core/autodiff.py); under ``torch.no_grad`` only the
-forward ops are scheduled. src/repro_torch/train_gnn.py takes the
-training steps.
+forward ops are scheduled. The scheduler is an `AutoSage` or, for
+minibatch streams, a `BatchScheduler` (core/batch.py).
+src/repro_torch/train_gnn.py takes the training steps.
 """
 from __future__ import annotations
 
@@ -85,6 +87,31 @@ class SAGE(nn.Module):
             if i < n_layers - 1:
                 x = torch.relu(x)
         return x
+
+    def minibatch_forward(self, sub: CSR, batch_rows: np.ndarray, x_full: torch.Tensor,
+                          sage=None) -> torch.Tensor:
+        """Logits (len(batch_rows), n_classes) of one minibatch step of
+        1-hop sampled GraphSAGE. ``sub`` is the rectangular adjacency of
+        the batch rows over all nodes (``graph.row_slice(batch_rows)``,
+        e.g. one element of `sparse.sample_subgraph_stream`): layer 0 is
+        the scheduled aggregation over each row's full neighbourhood, the
+        other layers a dense head on the batch rows."""
+        a = norm_csr(sub)
+        h = x_full @ self.w_agg[0]
+        agg = api.spmm(a, h, sage=sage, differentiable=torch.is_grad_enabled())
+        xb = x_full[torch.from_numpy(np.asarray(batch_rows, np.int64)).to(x_full.device)]
+        out = agg + xb @ self.w_self[0]
+        for i in range(1, len(self.w_agg)):
+            out = torch.relu(out)
+            out = out @ self.w_agg[i] + out @ self.w_self[i]
+        return out
+
+
+def sage_minibatch_forward(model: SAGE, sub: CSR, batch_rows: np.ndarray,
+                           x_full: torch.Tensor, sage=None) -> torch.Tensor:
+    """`SAGE.minibatch_forward` under the JAX package's function name,
+    the model in place of its parameter dict."""
+    return model.minibatch_forward(sub, batch_rows, x_full, sage=sage)
 
 
 def sage_params_from_jax(params_np: Dict[str, Sequence[np.ndarray]], device=None) -> SAGE:

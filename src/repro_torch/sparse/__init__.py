@@ -16,7 +16,10 @@ from repro_torch.sparse.generators import (
     power_law,
     products_like,
     reddit_like,
+    regime_shift_stream,
+    sample_subgraph_stream,
     single_hub,
+    table10_graph,
 )
 
 __all__ = [
@@ -38,5 +41,8 @@ __all__ = [
     "power_law",
     "products_like",
     "reddit_like",
+    "regime_shift_stream",
+    "sample_subgraph_stream",
     "single_hub",
+    "table10_graph",
 ]

@@ -7,7 +7,7 @@ repro/sparse/generators.py: the same seed gives the same arrays.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -88,6 +88,17 @@ def single_hub(
     return _csr_from_degrees(deg, n, rng)
 
 
+def table10_graph(
+    n: int = 20_000, hub_deg: int = 5_000, other_deg: int = 64, seed: int = 0
+) -> CSR:
+    """Table 10 settings: N=20k, hub=5k/12k, other=64/32; 1% rows are hubs."""
+    rng = np.random.default_rng(seed)
+    deg = np.full(n, other_deg, dtype=np.int64)
+    n_hubs = max(1, n // 100)
+    deg[rng.choice(n, size=n_hubs, replace=False)] = hub_deg
+    return _csr_from_degrees(deg, n, rng)
+
+
 def reddit_like(scale: float = 0.05, seed: int = 0) -> CSR:
     """Reddit-shaped graph: N=232 965, ~114.6M edges, avg deg ~492,
     heavy-tailed (lognormal) degrees. ``scale`` shrinks node count and
@@ -138,3 +149,58 @@ def fixed_degree(n: int, deg: int, n_cols: Optional[int] = None, seed: int = 0) 
     return _csr_from_degrees(
         np.full(n, deg, dtype=np.int64), n_cols if n_cols is not None else n, rng
     )
+
+
+def sample_subgraph_stream(
+    parents: Sequence[CSR],
+    n_graphs: int,
+    rows_per_graph: int,
+    seed: int = 0,
+) -> List[CSR]:
+    """Minibatch-style stream of induced subgraphs, cycling over parents:
+    each a uniform random row subset carrying its full adjacency (batch
+    rows aggregate over all their neighbours). Subgraphs of one parent
+    differ in the rows sampled and share its degree regime, the workload
+    `core.batch.BatchScheduler` buckets."""
+    rng = np.random.default_rng(seed)
+    out: List[CSR] = []
+    for i in range(n_graphs):
+        parent = parents[i % len(parents)]
+        n = min(rows_per_graph, parent.n_rows)
+        rows = np.sort(rng.choice(parent.n_rows, size=n, replace=False))
+        out.append(parent.row_slice(rows))
+    return out
+
+
+def regime_shift_stream(
+    n_graphs: int,
+    rows_per_graph: int,
+    n: int = 2048,
+    alpha_lo: float = 0.0,
+    alpha_hi: float = 1.6,
+    avg_deg: float = 8.0,
+    shift_at: float = 0.5,
+    seed: int = 0,
+) -> List[CSR]:
+    """Minibatch stream whose input regime drifts mid-stream: subgraphs
+    of power-law parents whose alpha stays at ``alpha_lo`` for the first
+    ``shift_at`` of the stream, then ramps to ``alpha_hi``. The
+    stale-decision workload the drift detector in core/batch.py catches.
+    Consecutive graphs share a parent in pairs, so the regime moves only
+    with alpha."""
+    rng = np.random.default_rng(seed)
+    out: List[CSR] = []
+    n_stationary = int(n_graphs * shift_at)
+    for i in range(n_graphs):
+        if i < n_stationary:
+            alpha = alpha_lo
+        else:
+            ramp = (i - n_stationary) / max(n_graphs - n_stationary - 1, 1)
+            alpha = alpha_lo + (alpha_hi - alpha_lo) * ramp
+        parent = power_law(n, alpha, avg_deg=avg_deg, seed=seed + 1000 + (i // 2))
+        rows = np.sort(
+            rng.choice(parent.n_rows, size=min(rows_per_graph, parent.n_rows),
+                       replace=False)
+        )
+        out.append(parent.row_slice(rows))
+    return out

@@ -1,18 +1,26 @@
-"""Full-graph GraphSAGE training on a synthetic Reddit-shaped graph, with
-every forward and backward aggregation scheduled by AutoSage.
+"""GraphSAGE training on a synthetic Reddit-shaped graph, with every
+forward and backward aggregation scheduled.
 
-Port of examples/train_gnn.py's ``make_data`` and ``train_full``:
+Port of examples/train_gnn.py's ``make_data``, ``train_full`` and
+``train_minibatch``:
 
     PYTHONPATH=src python -m repro_torch.train_gnn --epochs 30 --scale 0.01
     PYTHONPATH=src python -m repro_torch.train_gnn --device cpu --epochs 3
+    PYTHONPATH=src python -m repro_torch.train_gnn --minibatch 1024 \
+        --probe-budget-ms 2000 --epochs 1 --scale 0.25
 
-Each step runs the forward SpMMs ("spmm") and their backward
-("spmm_bwd_b" on the memoized transpose) as scheduled decisions with
-their own cache keys; the first step decides and prepares, later steps
-replay from the cache and the runner memo. Plain SGD (lr 0.05) on the
-mean log-softmax negative log-likelihood, as in the JAX example. The
-JAX example's minibatch and fleet modes need the batch scheduler, which
-the port does not have yet.
+Full-graph training runs the forward SpMMs ("spmm") and their backward
+("spmm_bwd_b" on the memoized transpose) as scheduled decisions of one
+`AutoSage` with their own cache keys; the first step decides and
+prepares, later steps replay from the cache and the runner memo.
+Minibatch training samples a sorted set of rows per step and trains on
+their rectangular sub-adjacency (`SAGE.minibatch_forward`): one
+`BatchScheduler` serves the whole stream, every subgraph's decisions
+bucketed under one probe budget, and each step's wall time (synchronized
+on a CUDA device) feeds `observe`. Plain SGD (lr 0.05) on the mean
+log-softmax negative log-likelihood, as in the JAX example. The JAX
+example's fleet mode (``--workers``, ``--cache``, ``--shared``) waits
+for the port's fleet slice.
 """
 from __future__ import annotations
 
@@ -23,7 +31,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import AutoSage, ScheduleCache
+from repro_torch.core import AutoSage, BatchScheduler, ScheduleCache
 from repro_torch.models.gnn import SAGE
 from repro_torch.sparse import reddit_like
 from repro_torch.sparse.csr import CSR, TRANSPOSE_STATS
@@ -78,6 +86,64 @@ def train_full(model: SAGE, graph: CSR, x: torch.Tensor, y: torch.Tensor,
     return losses
 
 
+def minibatch_rows(n_rows: int, minibatch: int, n_steps: int, seed: int = 1
+                   ) -> List[np.ndarray]:
+    """The sorted row sets of ``n_steps`` minibatch steps: the JAX
+    example's sequence for the same seed (its worker 0 uses seed 1)."""
+    rng = np.random.default_rng(seed)
+    return [np.sort(rng.choice(n_rows, size=minibatch, replace=False))
+            for _ in range(n_steps)]
+
+
+def minibatch_step(model: SAGE, graph: CSR, x: torch.Tensor, y: torch.Tensor,
+                   rows: np.ndarray, sage=None, lr: float = LR,
+                   update: bool = True) -> Tuple[float, float]:
+    """One minibatch SGD step on ``rows`` (without the update when not
+    ``update``: loss and gradients only). A `BatchScheduler` given as
+    ``sage`` gets the step's wall time through ``observe`` for the
+    bucket of the step's last decide. Returns (loss, step ms)."""
+    sub = graph.row_slice(rows)
+    yb = y[torch.from_numpy(rows.astype(np.int64)).to(y.device)]
+
+    def loss_fn():
+        return nll_loss(model.minibatch_forward(sub, rows, x, sage=sage), yb)
+
+    t0 = time.perf_counter()
+    if update:
+        loss = sgd_step(model, loss_fn, lr)
+    else:
+        model.zero_grad(set_to_none=True)
+        out = loss_fn()
+        out.backward()
+        loss = float(out.detach())
+    if x.device.type == "cuda":
+        torch.cuda.synchronize(x.device)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    if isinstance(sage, BatchScheduler):
+        sage.observe(sage.last_bucket, step_ms)
+    return loss, step_ms
+
+
+def train_minibatch(model: SAGE, graph: CSR, x: torch.Tensor, y: torch.Tensor,
+                    bs: BatchScheduler, minibatch: int, epochs: int = 1,
+                    lr: float = LR, seed: int = 1,
+                    log: Callable[[str], None] = print) -> List[float]:
+    """Sampled-subgraph SGD, n_rows // minibatch steps per epoch, through
+    one `BatchScheduler`; finalizes it at the end (every bucket decision
+    pinned into its cache). Returns the loss of every step."""
+    steps = max(1, graph.n_rows // minibatch)
+    rows = minibatch_rows(graph.n_rows, minibatch, steps * epochs, seed)
+    losses: List[float] = []
+    t0 = time.time()
+    with bs:
+        for epoch in range(epochs):
+            for r in rows[epoch * steps:(epoch + 1) * steps]:
+                losses.append(minibatch_step(model, graph, x, y, r, bs, lr)[0])
+            log(f"epoch {epoch:3d} loss {np.mean(losses[-steps:]):.4f} "
+                f"({time.time() - t0:.1f}s)  stream={bs.stats()}")
+    return losses
+
+
 def decisions(sage: AutoSage, ops=("spmm", "spmm_bwd_b")) -> dict:
     """cache key -> choice of every cached decision of ``ops``."""
     return {k: sage.cache.get(k)["choice"] for op in ops for k in sage.cache.keys_for_op(op)}
@@ -89,15 +155,37 @@ def main(argv=None) -> None:
     ap.add_argument("--scale", type=float, default=0.01)
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     ap.add_argument("--cache", default="", help="schedule cache path; empty = in memory")
+    ap.add_argument("--minibatch", type=int, default=0,
+                    help="rows per sampled subgraph; 0 = full-graph training")
+    ap.add_argument("--probe-budget-ms", type=float, default=2000.0,
+                    help="shared probe budget for the minibatch stream")
     args = ap.parse_args(argv)
 
     classes, in_dim = 16, 64
     graph = reddit_like(scale=args.scale)
     feats, labels = make_data(graph, classes, in_dim)
-    sage = AutoSage(cache=ScheduleCache(path=args.cache or None), device=args.device)
+    cache = ScheduleCache(path=args.cache or None)
+    if args.minibatch:
+        sage = AutoSage(cache=cache, device=args.device, probe_iters=2,
+                        probe_cap_ms=200, probe_frac=0.25)
+    else:
+        sage = AutoSage(cache=cache, device=args.device)
     device = sage.device
     model = SAGE(in_dim, classes, seed=0, device=device)
     x, y = torch.from_numpy(feats).to(device), torch.from_numpy(labels).to(device)
+    if args.minibatch:
+        bs = BatchScheduler(sage, probe_budget_ms=args.probe_budget_ms)
+        train_minibatch(model, graph, x, y, bs, args.minibatch, epochs=args.epochs)
+        s = bs.stats()
+        print(f"batched decide: {s['decides']} decides -> {s['buckets']} buckets, "
+              f"{s['probes_run']} probes ({s['probes_avoided']} avoided), drift: "
+              f"{s['drift_flags']} flags / {s['drift_reprobes']} re-probes / "
+              f"{s['drift_flips']} flips, probe budget spent "
+              f"{s['probe_spent_ms']:.0f}/{s['probe_budget_ms']:.0f}ms")
+        for row in bs.bucket_stats():
+            print(f"  bucket {row['op']} {row['bucket']}: hits={row['hits']} "
+                  f"choice={row['choice']}")
+        return
     train_full(model, graph, x, y, sage=sage, epochs=args.epochs)
     for key, choice in decisions(sage).items():
         _, _, f, op, _ = key.split("|")

@@ -244,3 +244,137 @@ def test_dynamic_values_runners_on_the_card(cuda, op):
         out = run(vals, b)
         _close(out, want)
         assert torch.equal(out, run(vals, b))
+
+
+# ------------------------------------------------------ row softmax
+def _softmax_case(case, rb, bc):
+    """(logits, mask) on the softmax's traps: row blocks and rows fully
+    masked, NaN and +-inf logits on masked cells, logits x5 and +-80, mask
+    values -1, 0.5 and 2, a row of finfo.min logits; W = 3, 1 or 2048."""
+    w = {"traps": 3, "w1": 1, "w2048": 2048}[case]
+    rng = np.random.default_rng(w + rb)
+    shape = (6 if w < 2048 else 3, w, rb, bc)
+    vals = (rng.standard_normal(shape) * 5).astype(np.float32)
+    vals[1] = rng.choice([-80.0, 80.0], size=shape[1:])
+    mask = rng.choice([-1.0, 0.0, 0.5, 1.0, 2.0], size=shape,
+                      p=[0.1, 0.35, 0.15, 0.3, 0.1]).astype(np.float32)
+    mask[0] = 0.0
+    mask[2, :, 1, :] = 0.0
+    vals[2, :, 3, :] = np.finfo(np.float32).min  # the Pallas kernel zeroes this row
+    mask[2, :, 3, :2] = 1.0
+    dead = mask <= 0
+    vals[dead & (rng.random(shape) < 0.3)] = np.nan
+    vals[dead & (rng.random(shape) < 0.3)] = np.inf
+    vals[dead & (rng.random(shape) < 0.3)] = -np.inf
+    return vals, mask
+
+
+@pytest.mark.parametrize("case", ["traps", "w1", "w2048"])
+@pytest.mark.parametrize("rb,bc", [(8, 8), (16, 8), (8, 16)])
+def test_row_softmax_kernel(cuda, case, rb, bc):
+    from repro_torch.kernels import softmax as ksm
+
+    vals, mask = (torch.from_numpy(a).to(cuda) for a in _softmax_case(case, rb, bc))
+    before = ksm.LAUNCHES["row_softmax_block_ell"]
+    out = ksm.row_softmax_block_ell(vals, mask)
+    assert ksm.LAUNCHES["row_softmax_block_ell"] == before + 1
+    torch.cuda.synchronize()
+    want = ksm.row_softmax_block_ell_plain(vals, mask)
+    assert torch.isfinite(out).all()
+    _close(out, want)
+    dead = mask <= 0
+    assert not out[dead].any() and not torch.signbit(out[dead]).any()
+    assert not out[2, :, 3].any()  # the finfo.min row
+    assert torch.equal(out, ksm.row_softmax_block_ell(vals, mask))
+
+
+def test_row_softmax_kernel_refuses_other_blockings(cuda):
+    from repro_torch.kernels import softmax as ksm
+
+    vals = torch.zeros((2, 2, 4, 8), device=cuda)
+    with pytest.raises(ValueError, match="tiles"):
+        ksm.row_softmax_block_ell(vals, vals)
+
+
+def test_ops_entry_point_on_the_card(cuda):
+    """kernels.ops with impl="auto" on CUDA tensors runs the kernels: the
+    SDDMM -> row softmax -> dense-W SpMM chain equals the fused kernel."""
+    import warnings
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import softmax as ksm
+
+    csr = _attn_graph("hub_skew")
+    q, k, v = (torch.randn(n, 64, generator=torch.Generator().manual_seed(s)).to(cuda)
+               for s, n in ((1, csr.n_rows), (2, csr.n_cols), (3, csr.n_cols)))
+    bell = csr_to_block_ell(csr)
+    colblk = torch.from_numpy(bell.colblk).to(cuda)
+    mask = torch.from_numpy((bell.vals != 0).astype(np.float32)).to(cuda)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        logits = ops.sddmm(csr, q, k) * 64 ** -0.5
+        before = ksm.LAUNCHES["row_softmax_block_ell"]
+        probs = ops.row_softmax(logits, mask)
+        assert ksm.LAUNCHES["row_softmax_block_ell"] == before + 1
+        fused = ops.csr_attention(csr, q, k, v)
+        want = ops.csr_attention(csr, q, k, v, impl="ref")
+    composed = ks.spmm_block_ell(colblk, probs, v, n_rows=csr.n_rows)
+    _close(composed, fused)
+    _close(fused, want)
+
+
+# ------------------------------------------- drift with real kernels
+def _hidden_hubs(n, n_cols, hub_frac, hub_deg, seed):
+    """n x n_cols graph of degree 18 with ``hub_frac`` rows of degree
+    ``hub_deg``; n_cols = 1024 keeps every row block's slot count at the
+    128 column blocks, so hubs leave the padding-waste bin alone."""
+    from repro_torch.sparse import csr_from_coo
+
+    rng = np.random.default_rng(seed)
+    deg = np.full(n, 18)
+    deg[rng.choice(n, int(n * hub_frac), replace=False)] = hub_deg
+    rows = np.repeat(np.arange(n), deg)
+    return csr_from_coo(rows, rng.integers(0, n_cols, rows.size), n, n_cols)
+
+
+def test_drift_reprobe_flips_decision_real_kernels(cuda):
+    """Twin of tests/test_drift.py's real-kernel test, on the card with
+    wall-clock observations: a bucket pinned to row_ell (padded ELL) sees
+    uniform degree-18 graphs, then graphs of the same bucket with hidden
+    hubs (deg_max 500: the bins cannot see them, row-ELL's padded work
+    grows 28x); the drift detector flags the bucket and the re-probe on
+    the newest graph flips the decision away from row_ell."""
+    import time
+
+    from repro_torch.core import AutoSage, BatchScheduler, ScheduleCache
+
+    f, n, n_cols = 32, 32768, 1024
+    stream = [_hidden_hubs(n, n_cols, 0.0, 18, seed=i) for i in range(8)] + [
+        _hidden_hubs(n, n_cols, 0.004, 500, seed=100 + i) for i in range(10)]
+    cache = ScheduleCache(path=None)
+    bs = BatchScheduler(AutoSage(cache=cache, device=cuda, probe_iters=2, probe_cap_ms=50,
+                                 probe_frac=0.5), probe_budget_ms=60_000)
+    first = bs.bucket_of(stream[0], f, "spmm")
+    assert all(bs.bucket_of(g, f, "spmm") == first for g in stream)  # one bucket
+    key = ScheduleCache.bucket_key(first.device, first.sig(), f, "spmm", bs.sage.alpha)
+    cache.put(key, {"choice": "row_ell", "probe_ms": {}, "estimates_ms": {}})
+    rng = np.random.default_rng(0)
+    choices = []
+    for g in stream:
+        b = torch.from_numpy(rng.standard_normal((g.n_cols, f)).astype(np.float32)).to(cuda)
+        d = bs.decide(g, f, "spmm")
+        run = bs.build_runner(g, d)
+        run(b)  # warm-up
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(b)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        bs.observe(bs.last_bucket, sorted(times)[1])
+        choices.append(d.choice)
+    s = bs.stats()
+    assert s["buckets"] == 1 and choices[0] == "row_ell", (s, choices)
+    assert s["drift_reprobes"] >= 1 and s["drift_flips"] >= 1, (s, choices)
+    assert choices[-1] != "row_ell", choices

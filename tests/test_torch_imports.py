@@ -62,7 +62,11 @@ def test_every_slice_module_is_checked():
         "src/repro_torch/kernels/sddmm.py",
         "src/repro_torch/core/autodiff.py",
         "src/repro_torch/train_gnn.py",
+        "src/repro_torch/kernels/ops.py",
+        "src/repro_torch/kernels/softmax.py",
+        "src/repro_torch/core/batch.py",
         "chip_smoke.py",
     } <= checked
     assert (PORT / "csrc" / "attention.cu").is_file()
     assert (PORT / "csrc" / "sddmm.cu").is_file()
+    assert (PORT / "csrc" / "softmax.cu").is_file()
