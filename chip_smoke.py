@@ -13,8 +13,12 @@ order; any failure raises and the script exits non-zero:
 2. SpMM kernels against their plain versions, at the SpMM slice's shapes
    (Reddit-0.25: the normalized adjacency of reddit_like(0.25, seed=0),
    F = 256 and 41) and on edge cases (row blocks with only the dummy
-   slot, a single hub spanning many merge tiles, a partial last tile,
-   tile_slots 3/8/16, every blocking). At Reddit-0.25 every blocking
+   slot, explicit-zero edges, a single hub spanning many merge tiles, a
+   partial last tile, tile_slots 3/8/16, merge runs of one tile and of
+   many, every blocking, F = 41, 256 and 602), and on the inf/NaN trap:
+   B holding +-inf and NaN in rows that tiles pair only with zero values,
+   where the kernels must match the CSR product ref.spmm_ref (the plain
+   versions, like the Pallas kernels, give NaN there). At Reddit-0.25 every blocking
    the registry offers (8x8, 16x8, 8x16) is checked and timed, since
    decide may pick any of them. Tolerance: |kernel - plain| <=
    1e-4 * |plain| + 1e-4 * max|plain| — both sum the same fp32 products
@@ -159,8 +163,8 @@ IN_DIM, N_CLASSES = 602, 41  # Reddit's feature width and class count
 SCALE = 0.25  # reddit_like node count: a quarter of Reddit's 232,965
 RTOL = 1e-4  # fp32 sums in another order
 # single_hub rows for the edge cases: the hub owns 2048 slots (256 merge
-# tiles at tile_slots 8) and the table has > MERGE_MAX_BLOCKS tiles, so
-# carry chains span several blocks of several tiles each
+# tiles at tile_slots 8), so its carry chain spans many runs; with
+# MERGE_MAX_RUNS = 64 the runs hold many tiles each
 HUB_N = 16384
 BLOCKINGS = ((8, 8), (16, 8), (8, 16))  # (rb, bc) the registry offers
 REPLACES = {
@@ -353,10 +357,13 @@ def check_layouts(tag, csr, lay, b, device) -> dict:
 
 
 def edge_cases(device) -> None:
-    """Small graphs that hit the layouts' corners."""
+    """Small graphs that hit the layouts' corners, at every blocking and
+    F = 41, 256 and 602; merge-path also with MERGE_MAX_RUNS = 64, so runs
+    hold many tiles and rows straddle them; then the inf/NaN trap."""
     import numpy as np
     import torch
 
+    from repro_torch.kernels import spmm as ks
     from repro_torch.sparse import CSR, hub_skew, single_hub
 
     rng = np.random.default_rng(5)
@@ -366,8 +373,14 @@ def edge_cases(device) -> None:
                 rng.standard_normal(int(deg.sum())).astype(np.float32), deg.size, 70)
     hub = single_hub(HUB_N, nnz_frac=0.9, seed=1)
     skew = hub_skew(3000, 4, 0.05, 300, seed=2)
-    for tag, csr in (("empty-blocks", empty), ("single-hub", hub), ("hub-skew", skew)):
-        for rb, bc in ((8, 8), (16, 8), (8, 16)):
+    zval = rng.standard_normal(skew.nnz).astype(np.float32)
+    zval[::3] = 0.0  # explicit-zero edges: tiles whose real edges hold 0.0
+    zeros = CSR(skew.rowptr, skew.colind, zval, skew.n_rows, skew.n_cols)
+    cases = (("empty-blocks", empty), ("single-hub", hub), ("hub-skew", skew),
+             ("explicit-zeros", zeros))
+    default_runs = ks.MERGE_MAX_RUNS
+    for tag, csr in cases:
+        for rb, bc in BLOCKINGS:
             lay = _layouts(csr, device, rb, bc, tile_slots=(3, 8, 16))
             if rb == bc == 8:
                 partial = [ts for ts, m in lay["merge"].items() if m[5] % ts]
@@ -375,11 +388,52 @@ def edge_cases(device) -> None:
                     raise AssertionError(f"{tag}: no case with a partial last tile")
                 if tag == "single-hub" and int((lay["merge"][8][2] == 0).sum()) < 32:
                     raise AssertionError("single-hub: the hub spans too few merge tiles")
-            for f in (41, 256):
+            for f in (41, 256, IN_DIM):
                 b = torch.randn(csr.n_cols, f, generator=torch.Generator().manual_seed(f)).to(device)
-                check_layouts(f"{tag} rb={rb} bc={bc} F={f}", csr, lay, b, device)
-    log("edge cases: empty row blocks, single hub over many merge tiles, partial "
-        "last tiles, tile_slots 3/8/16, blockings 8x8/16x8/8x16 at F=41,256: ok")
+                for max_runs in ((default_runs, 64) if rb == bc == 8 else (default_runs,)):
+                    ks.MERGE_MAX_RUNS = max_runs
+                    try:
+                        check_layouts(f"{tag} rb={rb} bc={bc} F={f} runs<={max_runs}", csr,
+                                      lay, b, device)
+                    finally:
+                        ks.MERGE_MAX_RUNS = default_runs
+    log("edge cases: empty row blocks, explicit-zero edges, single hub over many merge "
+        "tiles, partial last tiles, tile_slots 3/8/16, merge runs <= 8192 and <= 64, "
+        f"blockings 8x8/16x8/8x16 at F=41,256,{IN_DIM}: ok")
+    inf_nan_trap(skew, device)
+
+
+def inf_nan_trap(graph, device) -> None:
+    """B holds +inf, -inf and NaN in rows that no edge reads but that share
+    a column block with rows that edges do read (graph's column j moved to
+    2j: every odd column is unread). The plain versions multiply whole
+    tiles and give NaN (0 * inf), as the Pallas kernels do; the kernels
+    skip the zeros and must agree with the CSR product (ref.spmm_ref)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.sparse import CSR
+
+    val = graph.val if graph.val is not None else np.ones(graph.nnz, np.float32)
+    csr = CSR(graph.rowptr, graph.colind * 2, val, graph.n_rows, 2 * graph.n_cols)
+    up = {k: torch.from_numpy(a).to(device) for k, a in
+          (("rowptr", csr.rowptr), ("colind", csr.colind), ("val", val))}
+    for f in (41, 256):
+        b = torch.randn(csr.n_cols, f, generator=torch.Generator().manual_seed(f)).to(device)
+        b[1::2] = torch.tensor([float("inf"), float("-inf"), float("nan")],
+                               device=device).repeat(csr.n_cols)[: csr.n_cols // 2, None]
+        want = ref.spmm_ref(up["rowptr"], up["colind"], up["val"], b)
+        if not bool(torch.isfinite(want).all()):
+            raise AssertionError("inf/NaN trap: the CSR product is not finite")
+        for rb, bc in BLOCKINGS:
+            lay = _layouts(csr, device, rb, bc, tile_slots=(8,))
+            for label, (_, _, kern, plain) in _run_all(lay, b, csr.n_rows).items():
+                check_close(f"inf/NaN trap rb={rb} bc={bc} F={f} {label}", kern(), want)
+                if label == "spmm_ragged_ell" and not bool(torch.isnan(plain()).any()):
+                    raise AssertionError("inf/NaN trap: the plain version gave no NaN")
+    log("inf/NaN trap: B rows paired only with zero tile values hold +-inf/NaN; every "
+        "kernel and blocking matches ref.spmm_ref on the CSR (the plain versions give NaN): ok")
 
 
 def kernel_phase(csr, device, reps: int) -> dict:

@@ -133,8 +133,8 @@ def _hub_light_width(feat: InputFeatures, frac: float) -> float:
 
 
 def _f_tile(variant: str, knobs: Dict, f: int) -> int:
-    """Feature tile of one kernel step: the Pallas knob, or the CUDA
-    kernel's block width."""
+    """Feature tile of one kernel step: the Pallas knob, or the columns
+    one warp of the CUDA kernels covers."""
     if variant.endswith("_cuda"):
         return cuda_f_tile(f)
     return knobs.get("f_tile", 128)

@@ -58,15 +58,16 @@ class HardwareSpec:
         450 GB/s NVLink each way, 132 SMs (one row block per CUDA block,
         so ``p_eff`` = 132 chains run at once; `current` reads the card's
         own SM count). ``step_s`` is the ragged kernel's time per (slot,
-        feature tile) beyond its bound (the bytes of its layout, B and C
-        at the HBM rate): (54.04 ms - 1.58 ms) / 19,884,395 steps for the
-        8x8 ragged layout of Reddit-0.25 at F = 256, measured by
-        chip_smoke.py (printed as ``ragged_s_per_step``) on an NVIDIA H100
-        80GB HBM3 at a 700 W power limit. ``layout_budget_bytes`` is half
+        feature chunk) beyond its bound (the bytes of its layout, B and C
+        at the HBM rate): (20.58 ms - 1.58 ms) / (19,884,395 slots x 2
+        chunks) for the 8x8 ragged layout of Reddit-0.25 at F = 256,
+        measured by chip_smoke.py's phase 2 (printed as
+        ``ragged_s_per_step``) on an NVIDIA H100 80GB HBM3 at a 700 W
+        power limit. ``layout_budget_bytes`` is half
         the card's 80 GB (`current` reads the card's own total): one
         layout table may take half, the features, the outputs, a second
         candidate's table and the allocator's slack the rest."""
-        return HardwareSpec("h100", 67e12, 3.35e12, 450e9, step_s=2.6384e-9,
+        return HardwareSpec("h100", 67e12, 3.35e12, 450e9, step_s=4.7774e-10,
                             p_eff=132.0, layout_budget_bytes=40e9)
 
     @staticmethod

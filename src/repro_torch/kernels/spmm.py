@@ -20,11 +20,17 @@ CUDA tensors it launches its kernel on the current stream or raises.
 Unlike the Pallas kernels the wrappers take B unpadded: rows past
 ``b.shape[0]`` count as zero, any F works, and ``n_rows`` cuts the
 padded last row block off the output.
+
+The kernels do the work of the tiles' nonzeros only. For finite B that
+is what the Pallas kernels and the plain versions compute; where B holds
++-inf or NaN in a row that a tile pairs only with zero values, those
+multiply whole tiles and give NaN (0 * inf), while the kernels give the
+CSR product's value, as ``ref.spmm_ref`` does on the CSR.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -36,9 +42,15 @@ LAUNCHES: Dict[str, int] = {
     "spmm_merge_path": 0,
 }
 
-# the merge kernel runs at most this many blocks per feature tile; each
-# block covers ceil(n_tiles / MERGE_MAX_BLOCKS) consecutive merge tiles
-MERGE_MAX_BLOCKS = 1024
+WARP = 32
+# feature columns one warp covers: 4 per lane (csrc/spmm.cu kChunkCols)
+F_CHUNK = 128
+# the merge kernel splits the tile stream into at most this many runs,
+# one warp per (run, feature chunk): about one run per warp an H100 holds
+# resident (132 SMs x 64 warps = 8,448), so at F = 256 two chunks give a
+# few waves of equal, nnz-balanced runs; the carry buffer holds one
+# rb x F panel per run
+MERGE_MAX_RUNS = 8192
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,9 +63,52 @@ def reset_launches() -> None:
 
 
 def f_tile(f: int) -> int:
-    """Feature columns per CUDA block: one thread per column, a multiple
-    of 32, at most 256."""
-    return min(256, -(-max(f, 1) // 32) * 32)
+    """Feature columns one warp covers per unit of work (a slot of one
+    feature chunk): up to F_CHUNK, 4 per lane, fewer for narrow F."""
+    return min(F_CHUNK, -(-max(f, 1) // WARP) * WARP)
+
+
+def n_chunks(f: int) -> int:
+    """Feature chunks a row block (or merge run) is split into, one warp
+    each: ceil(f / f_tile(f))."""
+    return -(-max(f, 1) // F_CHUNK)
+
+
+def vec4(b: torch.Tensor, out: torch.Tensor) -> bool:
+    """Whether a lane takes its 4 columns as one float4: F % 4 == 0 and
+    B and C 16-byte aligned."""
+    return b.shape[1] % 4 == 0 and b.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+
+
+def lane_columns(f: int, chunk: int, lane: int, vec: bool) -> list:
+    """The feature columns a lane owns in a chunk, as the kernels map
+    them: 4 consecutive ones, one float4 (vec), or 4 strided by the warp
+    width; either way a warp-wide load is coalesced."""
+    base = chunk * F_CHUNK
+    cols = ([base + 4 * lane + k for k in range(4)] if vec
+            else [base + lane + WARP * k for k in range(4)])
+    return [c for c in cols if c < f]
+
+
+def rowblock_order(blkptr: torch.Tensor) -> torch.Tensor:
+    """int32 permutation of the row blocks, longest slot chain first: the
+    order in which the ragged kernel's warps take them, so the chains of
+    hub row blocks start in the first wave instead of trailing the last."""
+    return torch.argsort(torch.diff(blkptr), descending=True, stable=True).to(torch.int32)
+
+
+def merge_runs(n_tiles: int) -> Tuple[int, int]:
+    """(tiles_per_run, n_runs): the merge tiles split into consecutive
+    runs of equal length (the last may be shorter), at most
+    MERGE_MAX_RUNS of them."""
+    per_run = max(1, -(-n_tiles // MERGE_MAX_RUNS))
+    return per_run, -(-n_tiles // per_run)
+
+
+def _check_aligned(name: str, vals: torch.Tensor) -> None:
+    """The kernels read a tile with one vector load per lane."""
+    if vals.data_ptr() % 16:
+        raise ValueError(f"{name}: the value tiles must be 16-byte aligned")
 
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -65,12 +120,12 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = build.load("spmm")
         lib.autosage_spmm_rows.argtypes = [
-            _P, _I, _P, _P, _P, _P, _LL, _I, _I, _LL, _I, _LL, _I, _P,
+            _P, _P, _I, _P, _P, _P, _P, _LL, _I, _I, _LL, _I, _LL, _I, _I, _P,
         ]
         lib.autosage_spmm_rows.restype = _I
         lib.autosage_spmm_merge.argtypes = [
             _P, _P, _P, _P, _P, _I, _I, _I, _LL, _P, _P, _P, _I, _I, _LL, _I,
-            _LL, _I, _P,
+            _LL, _I, _I, _P,
         ]
         lib.autosage_spmm_merge.restype = _I
         _LIB = lib
@@ -98,8 +153,10 @@ def spmm_ragged_ell(
     n_rows: Optional[int] = None,
 ) -> torch.Tensor:
     """Slot-compacted SpMM over a RaggedBlockELL: returns (n_rows, F),
-    n_rows defaulting to nrb * rb. One CUDA block per (row block, feature
-    tile) walks blkptr[i]..blkptr[i+1] in slot order."""
+    n_rows defaulting to nrb * rb. One warp per (row block, feature
+    chunk) walks blkptr[i]..blkptr[i+1] in slot order, doing the work of
+    the tiles' nonzeros only; warps take the row blocks longest first
+    (`rowblock_order`)."""
     if b.device.type == "cpu":
         return spmm_ragged_ell_plain(blkptr, slot_colblk, slot_vals, b, n_rows)
     name = "spmm_ragged_ell"
@@ -114,10 +171,12 @@ def spmm_ragged_ell(
     out = torch.empty((n_rows, f), dtype=torch.float32, device=b.device)
     if nrb == 0 or f == 0 or n_rows == 0:
         return out
+    _check_aligned(name, slot_vals)
+    order = rowblock_order(blkptr)
     rc = _lib().autosage_spmm_rows(
-        blkptr.data_ptr(), 0, slot_colblk.data_ptr(), slot_vals.data_ptr(),
+        blkptr.data_ptr(), order.data_ptr(), 0, slot_colblk.data_ptr(), slot_vals.data_ptr(),
         b.data_ptr(), out.data_ptr(), nrb, rb, bc, b.shape[0], f, n_rows,
-        f_tile(f), build.stream_of(b.device),
+        n_chunks(f), vec4(b, out), build.stream_of(b.device),
     )
     build.raise_on(rc, name)
     LAUNCHES[name] += 1
@@ -139,8 +198,9 @@ def spmm_block_ell(
     n_rows: Optional[int] = None,
 ) -> torch.Tensor:
     """Dense-W block-ELL SpMM: every row block walks all W slots, padded
-    (all-zero) ones included, with the ragged kernel's per-slot FMA order,
-    so its output equals the ragged kernel's bit for bit."""
+    (all-zero) ones included, at the cost of their reads; the live tiles
+    take the ragged kernel's FMA order, so its output equals the ragged
+    kernel's bit for bit."""
     if b.device.type == "cpu":
         return spmm_block_ell_plain(colblk, vals, b, n_rows)
     name = "spmm_block_ell"
@@ -153,10 +213,11 @@ def spmm_block_ell(
     out = torch.empty((n_rows, f), dtype=torch.float32, device=b.device)
     if nrb == 0 or f == 0 or n_rows == 0:
         return out
+    _check_aligned(name, vals)
     rc = _lib().autosage_spmm_rows(
-        None, w, colblk.data_ptr(), vals.data_ptr(), b.data_ptr(),
-        out.data_ptr(), nrb, rb, bc, b.shape[0], f, n_rows, f_tile(f),
-        build.stream_of(b.device),
+        None, None, w, colblk.data_ptr(), vals.data_ptr(), b.data_ptr(),
+        out.data_ptr(), nrb, rb, bc, b.shape[0], f, n_rows, n_chunks(f),
+        vec4(b, out), build.stream_of(b.device),
     )
     build.raise_on(rc, name)
     LAUNCHES[name] += 1
@@ -185,9 +246,9 @@ def spmm_merge_path(
     """nnz-balanced SpMM over a MergePathELL (rb = bc = 8).
 
     The Pallas kernel keeps the whole output panel resident across a
-    sequential grid; CUDA blocks run in parallel and in no order. So each
-    block takes a run of consecutive merge tiles (at most MERGE_MAX_BLOCKS
-    runs), writes the rows that start inside its run, and leaves the
+    sequential grid; warps run in parallel and in no order. So each warp
+    takes a run of consecutive merge tiles (`merge_runs`) in one feature
+    chunk, writes the rows that start inside its run, and leaves the
     partial sum of a row it continues in a carry buffer; a second kernel
     adds each row's carries in run order. No float atomics: two launches
     give the same bits."""
@@ -207,15 +268,15 @@ def spmm_merge_path(
     out = torch.empty((n_rows, f), dtype=torch.float32, device=b.device)
     if nrb == 0 or n_tiles == 0 or f == 0 or n_rows == 0:
         return out
-    tiles_per_block = -(-n_tiles // MERGE_MAX_BLOCKS)
-    n_blocks = -(-n_tiles // tiles_per_block)
-    carry = torch.empty((n_blocks, rb, f), dtype=torch.float32, device=b.device)
+    _check_aligned(name, tile_vals)
+    per_run, n_runs = merge_runs(n_tiles)
+    carry = torch.empty((n_runs, rb, f), dtype=torch.float32, device=b.device)
     rc = _lib().autosage_spmm_merge(
         blkptr.data_ptr(), slot_colblk.data_ptr(), tile_vals.data_ptr(),
         tile_rowblk.data_ptr(), tile_offset.data_ptr(), tile_slots,
-        tiles_per_block, n_blocks, n_slots, b.data_ptr(), out.data_ptr(),
-        carry.data_ptr(), rb, bc, b.shape[0], f, n_rows, f_tile(f),
-        build.stream_of(b.device),
+        per_run, n_runs, n_slots, b.data_ptr(), out.data_ptr(),
+        carry.data_ptr(), rb, bc, b.shape[0], f, n_rows, n_chunks(f),
+        vec4(b, out), build.stream_of(b.device),
     )
     build.raise_on(rc, name)
     LAUNCHES[name] += 1

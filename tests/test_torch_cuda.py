@@ -40,7 +40,22 @@ def cuda():
 def _graph(kind):
     if kind == "single_hub":
         return norm_csr(single_hub(4096, nnz_frac=0.9, seed=1))
+    if kind == "empty_zeros":
+        # rows 8..31 empty (three row blocks own only their dummy slot),
+        # and every third edge carries an explicit 0.0 value
+        rng = np.random.default_rng(5)
+        deg = np.r_[rng.integers(1, 6, 8), np.zeros(24, np.int64), rng.integers(1, 6, 21)]
+        val = rng.standard_normal(int(deg.sum())).astype(np.float32)
+        val[::3] = 0.0
+        return CSR(np.r_[0, np.cumsum(deg)].astype(np.int32),
+                   rng.integers(0, 70, int(deg.sum())).astype(np.int32), val, deg.size, 70)
     return norm_csr(hub_skew(3000, 4, 0.05, 300, seed=2))
+
+
+def _spread(csr):
+    """csr with column j moved to 2j: every odd column (half of each column
+    block) is read by no edge."""
+    return CSR(csr.rowptr, csr.colind * 2, csr.val, csr.n_rows, 2 * csr.n_cols)
 
 
 def _close(got, want):
@@ -53,15 +68,29 @@ def _b(csr, f, device):
     return torch.randn(csr.n_cols, f, generator=g).to(device)
 
 
-@pytest.mark.parametrize("kind", ["hub_skew", "single_hub"])
+def _ragged_args(csr, rb, bc, device):
+    rag = csr_to_block_ell(csr, rb=rb, bc=bc).to_ragged()
+    return [torch.from_numpy(a).to(device) for a in (rag.blkptr, rag.slot_colblk, rag.slot_vals)]
+
+
+def _merge_args(csr, tile_slots, device):
+    mp = build_merge_path(csr_to_block_ell(csr).to_ragged(), tile_slots=tile_slots)
+    t = [torch.from_numpy(a).to(device) for a in
+         (mp.blkptr, mp.slot_colblk, mp.tile_rowblk, mp.tile_offset, mp.tile_vals)]
+    return t, mp
+
+
+@pytest.mark.parametrize("kind", ["hub_skew", "single_hub", "empty_zeros"])
 @pytest.mark.parametrize("rb,bc", [(8, 8), (16, 8), (8, 16)])
-@pytest.mark.parametrize("f", [41, 256])
+@pytest.mark.parametrize("f", [1, 3, 41, 128, 256, 602])
 def test_ragged_and_dense_w_kernels(cuda, kind, rb, bc, f):
+    """Every blocking at widths that are and are not multiples of 4 (the
+    float4 and the scalar column mappings), on tiles with explicit-zero
+    edges and row blocks that hold only the dummy slot."""
     csr = _graph(kind)
     bell = csr_to_block_ell(csr, rb=rb, bc=bc)
-    rag = bell.to_ragged()
     b = _b(csr, f, cuda)
-    args = [torch.from_numpy(a).to(cuda) for a in (rag.blkptr, rag.slot_colblk, rag.slot_vals)]
+    args = _ragged_args(csr, rb, bc, cuda)
     before = ks.LAUNCHES["spmm_ragged_ell"]
     ragged = ks.spmm_ragged_ell(*args, b, n_rows=csr.n_rows)
     assert ks.LAUNCHES["spmm_ragged_ell"] == before + 1
@@ -71,19 +100,69 @@ def test_ragged_and_dense_w_kernels(cuda, kind, rb, bc, f):
         b, n_rows=csr.n_rows,
     )
     assert torch.equal(dense, ragged)
+    if kind == "empty_zeros":
+        empty = torch.from_numpy(csr.degrees == 0).to(cuda)
+        assert not ragged[empty].any()
 
 
-@pytest.mark.parametrize("kind", ["hub_skew", "single_hub"])
+@pytest.mark.parametrize("kind", ["hub_skew", "single_hub", "empty_zeros"])
 @pytest.mark.parametrize("tile_slots", [3, 8, 16])
-def test_merge_path_kernel(cuda, kind, tile_slots):
+@pytest.mark.parametrize("f", [3, 256, 602])
+@pytest.mark.parametrize("max_runs", [None, 5])
+def test_merge_path_kernel(cuda, monkeypatch, kind, tile_slots, f, max_runs):
+    """Merge-path against its plain version and within tolerance of
+    ragged; two launches bit-equal. max_runs = 5 forces long runs of many
+    tiles, so rows straddle runs mid-run and carry chains are long."""
+    if max_runs is not None:
+        monkeypatch.setattr(ks, "MERGE_MAX_RUNS", max_runs)
     csr = _graph(kind)
-    mp = build_merge_path(csr_to_block_ell(csr).to_ragged(), tile_slots=tile_slots)
-    t = [torch.from_numpy(a).to(cuda) for a in
-         (mp.blkptr, mp.slot_colblk, mp.tile_rowblk, mp.tile_offset, mp.tile_vals)]
-    b = _b(csr, 256, cuda)
+    t, mp = _merge_args(csr, tile_slots, cuda)
+    b = _b(csr, f, cuda)
     out = ks.spmm_merge_path(*t, b, mp.n_slots, n_rows=csr.n_rows)
     _close(out, ks.spmm_merge_path_plain(t[0], t[1], t[4], b, mp.n_slots, n_rows=csr.n_rows))
+    _close(out, ks.spmm_ragged_ell(*_ragged_args(csr, 8, 8, cuda), b, n_rows=csr.n_rows))
     assert torch.equal(out, ks.spmm_merge_path(*t, b, mp.n_slots, n_rows=csr.n_rows))
+
+
+@pytest.mark.parametrize("rb,bc", [(8, 8), (16, 8), (8, 16)])
+def test_inf_and_nan_in_b_rows_paired_only_with_zeros(cuda, rb, bc):
+    """B holds +inf, -inf and NaN in rows that no edge reads but that share
+    a column block with rows that edges do read. The plain versions (like
+    the Pallas kernels) multiply whole tiles and give NaN there; the
+    kernels skip the zeros and agree with the CSR product (ref.spmm_ref)."""
+    from repro_torch.kernels import ref
+
+    csr = _spread(_graph("hub_skew"))
+    b = _b(csr, 64, cuda)
+    b[1::2] = torch.tensor([float("inf"), float("-inf"), float("nan")],
+                           device=cuda).repeat(csr.n_cols)[: csr.n_cols // 2, None]
+    want = ref.spmm_ref(*(torch.from_numpy(a).to(cuda) for a in (csr.rowptr, csr.colind, csr.val)), b)
+    assert torch.isfinite(want).all()
+    args = _ragged_args(csr, rb, bc, cuda)
+    ragged = ks.spmm_ragged_ell(*args, b, n_rows=csr.n_rows)
+    assert torch.isnan(ks.spmm_ragged_ell_plain(*args, b, n_rows=csr.n_rows)).any()
+    _close(ragged, want)
+    bell = csr_to_block_ell(csr, rb=rb, bc=bc)
+    dense = ks.spmm_block_ell(torch.from_numpy(bell.colblk).to(cuda),
+                              torch.from_numpy(bell.vals).to(cuda), b, n_rows=csr.n_rows)
+    assert torch.equal(dense, ragged)
+    if (rb, bc) == (8, 8):
+        t, mp = _merge_args(csr, 8, cuda)
+        _close(ks.spmm_merge_path(*t, b, mp.n_slots, n_rows=csr.n_rows), want)
+
+
+def test_unaligned_b_takes_the_scalar_column_path(cuda):
+    """B at a 4-byte offset (F % 4 == 0, but not 16-byte aligned) goes
+    through the scalar column mapping and gives the float4 path's bits."""
+    csr = _graph("hub_skew")
+    b = _b(csr, 256, cuda)
+    storage = torch.empty(b.numel() + 1, device=cuda)
+    shifted = storage[1:].view_as(b)
+    shifted.copy_(b)
+    assert not ks.vec4(shifted, shifted) and ks.vec4(b, b)
+    for args in (_ragged_args(csr, 8, 8, cuda), _ragged_args(csr, 16, 8, cuda)):
+        assert torch.equal(ks.spmm_ragged_ell(*args, shifted, n_rows=csr.n_rows),
+                           ks.spmm_ragged_ell(*args, b, n_rows=csr.n_rows))
 
 
 def test_wrapper_raises_instead_of_falling_back(cuda):
