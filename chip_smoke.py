@@ -67,16 +67,21 @@ order; any failure raises and the script exits non-zero:
 
 7. SDDMM kernels against their plain versions, on edge cases (row blocks
    with only the dummy slot, explicit-zero edges, a hub over many merge
-   tiles, partial last merge tiles; F = 16, 41 and 256) and at the
-   training slice's shapes (the deduplicated Reddit-0.25 graph, D = 256,
-   phase 5's 8x8 mask tables plus a 16x8 blocking; merge tile_slots 8
-   and 16), same tolerance. Live tiles are equal bit for bit across
-   dense-W, ragged and merge; padded, dummy and tail tiles are +0.0; a
-   second launch gives the same bits. Times of each kernel, its plain
-   version and torch.sparse.sampled_addmm on the same pattern (the one
-   PyTorch call that computes the same function; the port never calls
-   it) beside the bound (the mask tiles and index arrays read once, X
-   and Y read once, the tiles written once; 2 * nnz * D FLOPs).
+   tiles, partial last merge tiles, block-diagonal cliques whose tiles
+   are fully live; F = 16, 41, 256 and 602; X and Y holding -0.0 in
+   whole rows, whose live cells must read +0.0; Y holding +-inf and NaN
+   in rows that only masked cells pair with, which must stay +0.0) and
+   at the training slice's shapes (the deduplicated Reddit-0.25 graph,
+   D = 256, phase 5's 8x8 mask tables plus a 16x8 blocking; merge
+   tile_slots 8 and 16), same tolerance. Live tiles are equal bit for
+   bit across dense-W, ragged and merge; padded, dummy, tail and masked
+   cells are +0.0 and no -0.0 appears; a second launch gives the same
+   bits. Times of each kernel, its plain version,
+   torch.sparse.sampled_addmm on the same pattern (the one PyTorch call
+   that computes the same function; the port never calls it) and the
+   guardrail's SDDMM baseline gather_dot (``baseline_ms``) beside the
+   bound (the mask tiles and index arrays read once, X and Y read once,
+   the tiles written once; 2 * nnz * D FLOPs).
 8. SAGE training: three full-graph SGD steps (train_gnn.train_full's
    step: lr 0.05, mean log-softmax NLL) of the phase-3 model on
    Reddit-0.25 with train_gnn.make_data's features and labels, through
@@ -1048,14 +1053,18 @@ def sddmm_edge_cases(device) -> None:
                 rng.integers(0, 70, int(deg.sum())).astype(np.int32), val, deg.size, 70)
     hub = single_hub(HUB_N, nnz_frac=0.9, seed=1)
     skew = hub_skew(3000, 4, 0.05, 300, seed=2)
-    for tag, csr in (("empty-blocks", empty), ("single-hub", hub), ("hub-skew", skew)):
+    cliques = _cliques(25, 16)
+    for tag, csr in (("empty-blocks", empty), ("single-hub", hub), ("hub-skew", skew),
+                     ("cliques", cliques)):
         for rb in (8, 16):
             lay = _sddmm_layouts(csr, device, rb, 8)
             if rb == 8:
                 partial = [ts for ts in (3, 8, 16) if lay["ragged"][2].shape[0] % ts]
                 if not partial:
                     raise AssertionError(f"{tag}: no case with a partial last tile")
-            for f in (16, 41, 256):
+            if tag == "cliques" and not bool((lay["ragged"][2] == 1).all()):
+                raise AssertionError(f"cliques rb={rb}: a tile is not fully live")
+            for f in (16, 41, 256, 602):
                 g = torch.Generator().manual_seed(f)
                 x = torch.randn(csr.n_rows, f, generator=g).to(device)
                 y = torch.randn(csr.n_cols, f, generator=g).to(device)
@@ -1083,9 +1092,64 @@ def sddmm_edge_cases(device) -> None:
         check_close(f"explicit-zero edges {name}", got, want)
         if not bool((got[zero] != 0).all()):
             raise AssertionError(f"explicit-zero edges {name}: an edge lost its dot product")
+    sddmm_zero_and_inf_traps(skew, device)
     log("SDDMM edge cases: empty row blocks (dummy slots), explicit-zero edges, single hub "
-        "over many merge tiles, partial last tiles (tile_slots 3/8/16), blockings 8x8/16x8 "
-        "at F=16,41,256: ok")
+        "over many merge tiles, partial last tiles (tile_slots 3/8/16), fully live clique "
+        "tiles, blockings 8x8/16x8 at F=16,41,256,602, -0.0 rows, +-inf/NaN in Y rows only "
+        "masked cells pair with: ok")
+
+
+def _cliques(n_cliques, size):
+    """Block-diagonal cliques of ``size`` nodes: at size 16 every 8x8 and
+    16x8 tile of the diagonal has all its cells live."""
+    import numpy as np
+
+    from repro_torch.sparse import CSR
+
+    n = n_cliques * size
+    rows = np.repeat(np.arange(n), size)
+    cols = rows // size * size + np.tile(np.arange(size), n)
+    return CSR((np.arange(n + 1) * size).astype(np.int32), cols.astype(np.int32),
+               np.ones(n * size, np.float32), n, n)
+
+
+def sddmm_zero_and_inf_traps(graph, device) -> None:
+    """Two traps through check_sddmm at 8x8 (merge tile_slots 3 and 8) and
+    16x8: (a) X and Y holding -0.0 in whole rows, whose live cells must
+    read +0.0, with no -0.0 anywhere; (b) the graph's columns spread to
+    even ones, with Y holding +inf, -inf and NaN in the odd rows, which
+    only masked cells pair with: those cells stay +0.0 and the whole
+    output is finite (check_close raises on a non-finite output)."""
+    import torch
+
+    from repro_torch.kernels import sddmm as ksd
+    from repro_torch.sparse import CSR
+
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(graph.n_rows, 64, generator=g)
+    y = torch.randn(graph.n_cols, 64, generator=g)
+    x[::3], y[1::4] = -0.0, -0.0
+    spread = CSR(graph.rowptr, graph.colind * 2, graph.val, graph.n_rows, 2 * graph.n_cols)
+    y_inf = torch.randn(spread.n_cols, 41, generator=g)
+    y_inf[1::6], y_inf[3::6], y_inf[5::6] = float("inf"), float("-inf"), float("nan")
+    x_inf = torch.randn(spread.n_rows, 41, generator=g).to(device)
+    x, y, y_inf = x.to(device), y.to(device), y_inf.to(device)
+    for rb in (8, 16):
+        merge_ts = (3, 8) if rb == 8 else ()
+        lay = _sddmm_layouts(graph, device, rb, 8)
+        check_sddmm(f"-0.0 rows rb={rb}", lay, x, y, device, merge_ts)
+        out = ksd.sddmm_ragged_ell(*lay["ragged"], x, y)
+        rows = lay["ragged"][0].long()[:, None] * rb + torch.arange(rb, device=device)
+        hit = (x[:, 0] == 0)[rows.clamp(max=graph.n_rows - 1)]
+        if not bool(hit.any()) or bool(out[hit].any()):
+            raise AssertionError(f"-0.0 rows rb={rb}: a tile row of a -0.0 X row is not 0")
+        lay = _sddmm_layouts(spread, device, rb, 8)
+        check_sddmm(f"inf/NaN rows rb={rb}", lay, x_inf, y_inf, device, merge_ts)
+        out = ksd.sddmm_ragged_ell(*lay["ragged"], x_inf, y_inf)
+        odd = out[..., 1::2]
+        if bool(odd.any()) or bool(torch.signbit(odd).any()):
+            raise AssertionError(f"inf/NaN rows rb={rb}: a masked cell is not +0.0")
+        del lay, out, odd
 
 
 def sddmm_kernel_phase(graph, held: dict, device, reps: int) -> dict:
@@ -1097,6 +1161,7 @@ def sddmm_kernel_phase(graph, held: dict, device, reps: int) -> dict:
     import torch
 
     from repro_torch.core.probe import time_callable
+    from repro_torch.kernels import baselines
 
     g = torch.Generator().manual_seed(11)
     x = torch.randn(graph.n_rows, D_ATTN, generator=g).to(device)
@@ -1109,6 +1174,12 @@ def sddmm_kernel_phase(graph, held: dict, device, reps: int) -> dict:
                            device, iters=reps).median_ms
     del a_lib
     log(f"torch.sparse.sampled_addmm D={D_ATTN}: {lib_ms} ms")
+    rp, ci = (torch.from_numpy(a).to(device) for a in (graph.rowptr, graph.colind))
+    base_ms = time_callable(
+        lambda: baselines.sddmm_gather_dot({"rowptr": rp, "colind": ci}, x, y), device,
+        iters=reps).median_ms
+    del rp, ci
+    log(f"gather_dot (the guardrail's SDDMM baseline) D={D_ATTN}: {base_ms} ms")
     io_bytes = (graph.n_rows + graph.n_cols) * D_ATTN * 4  # X and Y read once
     flops = 2.0 * graph.nnz * D_ATTN
     records = {}
@@ -1141,7 +1212,7 @@ def sddmm_kernel_phase(graph, held: dict, device, reps: int) -> dict:
                 records[name] = {
                     "name": name, "route": "cuda", "source": "src/repro_torch/csrc/sddmm.cu",
                     "replaces": REPLACES[name], "launches": 0, **rec,
-                    "library_ms": lib_ms, "variants": {},
+                    "library_ms": lib_ms, "baseline_ms": base_ms, "variants": {},
                 }
             else:
                 key = f"tile_slots={ts}" if name == "sddmm_merge_path" else f"rb={rb},bc={bc}"
@@ -1150,8 +1221,10 @@ def sddmm_kernel_phase(graph, held: dict, device, reps: int) -> dict:
         del kern, plain, arrays  # the loop's last tables
         if rb == 8:
             rec = records["sddmm_ragged_ell"]
-            log("sddmm_ragged_ell s per live slot beyond the bound: "
-                f"{(rec['ms'] - rec['bound_ms']) * 1e-3 / n_slots:.4e}")
+            beyond = (rec['ms'] - rec['bound_ms']) * 1e-3 / n_slots
+            log(f"sddmm_ragged_ell s per live slot beyond the bound: {beyond:.4e}; per "
+                f"(slot, 128-column chunk), HardwareSpec.sddmm_step_s: "
+                f"{beyond / math.ceil(D_ATTN / 128):.4e}")
         del lay
         _empty_cache(device)
     return records

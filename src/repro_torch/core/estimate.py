@@ -16,7 +16,7 @@ estimate error.
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 from repro_torch.core.features import (
     HardwareSpec,
@@ -83,12 +83,14 @@ def _block_ell_steps(elems: float, knobs: Dict) -> float:
 
 
 def _row_serial_penalty(
-    feat: InputFeatures, hw: HardwareSpec, knobs: Dict, weight: float = 1.0
+    feat: InputFeatures, hw: HardwareSpec, knobs: Dict, weight: float = 1.0,
+    step_s: Optional[float] = None,
 ) -> float:
     """Serialization tax of row-partitioned families under degree skew:
     the heaviest row's slot chain (deg_max/bc slots) runs in ONE block;
     whatever exceeds the fair share nnz/p_eff is critical-path extension,
-    charged at the per-slot step time. Merge-path never pays it."""
+    charged at the per-slot step time (``step_s``, by default
+    ``hw.step_s``). Merge-path never pays it."""
     if feat.balance() < 8.0:
         return 0.0
     rb = knobs.get("rb", 8)
@@ -96,7 +98,8 @@ def _row_serial_penalty(
     max_chain = feat.deg_max / bc
     fair = feat.nnz / hw.p_eff / (rb * bc)
     excess = max(0.0, max_chain - fair)
-    step_t = 2.0 * rb * bc * feat.f / hw.peak_flops + hw.step_s
+    step_t = 2.0 * rb * bc * feat.f / hw.peak_flops + (
+        hw.step_s if step_s is None else step_s)
     return weight * excess * step_t
 
 
@@ -207,9 +210,10 @@ def estimate_spmm(feat: InputFeatures, hw: HardwareSpec, variant: str,
 def estimate_sddmm(feat: InputFeatures, hw: HardwareSpec, variant: str,
                    knobs: Dict) -> float:
     """SDDMM candidates, and the SDDMM stages of the composed attention
-    pipelines. The block families charge one ``hw.step_s`` per (slot,
-    128-column chunk), the Pallas grid's step; the CUDA kernels take F in
-    one pass, and on the card ``step_s`` is fitted per slot."""
+    pipelines. The block families charge one ``hw.sddmm_step_s`` per
+    (slot, 128-column chunk), the Pallas grid's step; on the card it is
+    fitted on the SDDMM kernel, and on the CPU profiles it equals
+    ``step_s``, as in the JAX package."""
     family = PORTED_FROM.get(variant, variant)
     n, f, nnz = feat.n_rows, feat.f, feat.nnz
     if family in ("block_ell_pallas", "ragged_ell_pallas"):
@@ -225,8 +229,8 @@ def estimate_sddmm(feat: InputFeatures, hw: HardwareSpec, variant: str,
         n_steps = _block_ell_steps(eff, knobs) * max(f / f_chunk, 1.0)
         # a hub row block's slots all re-gather the same X rows: the same
         # serialization shape as the SpMM chain (merge-path does not pay it)
-        penalty = _row_serial_penalty(feat, hw, knobs)
-        return _roofline(bytes_moved, flops, hw) + n_steps * hw.step_s + penalty
+        penalty = _row_serial_penalty(feat, hw, knobs, step_s=hw.sddmm_step_s)
+        return _roofline(bytes_moved, flops, hw) + n_steps * hw.sddmm_step_s + penalty
     if family == "merge_path_pallas":
         bc = knobs.get("bc", 8)
         f_chunk = knobs.get("f_chunk", 128)
@@ -238,7 +242,7 @@ def estimate_sddmm(feat: InputFeatures, hw: HardwareSpec, variant: str,
         flops = 2.0 * eff * f
         slot_steps = _block_ell_steps(eff, knobs) * max(f / f_chunk, 1.0)
         tile_steps = slot_steps / max(tile_slots, 1)
-        return _roofline(bytes_moved, flops, hw) + (slot_steps + tile_steps) * hw.step_s
+        return _roofline(bytes_moved, flops, hw) + (slot_steps + tile_steps) * hw.sddmm_step_s
     if variant == "gather_dot":
         bytes_moved = nnz * (2 * f * BYTES_F32 + 8 + BYTES_F32)
         flops = 2.0 * nnz * f

@@ -12,13 +12,18 @@ what bounds them on an H100 and what the design does about it.
   sddmm_merge_path  <- sddmm_merge_path  ((n_tiles, tile_slots, rb, bc)
                                           tiles; row blocks by bisection)
 
-All three run one per-slot routine: each dot product is one fp32 fmaf
-chain over the feature columns in order, so the live tiles of the three
-layouts are equal bit for bit. Masked cells are +0.0 (the Pallas kernels
-multiply by the mask and may leave -0.0 there; no edge reads a masked
-cell), and tiles without an edge — padded dense-W slots, the ragged
-dummy slot, merge tail slots — are all +0.0. The plain versions follow
-the same rule.
+All three run one per-slot routine that computes only the cells whose
+mask is > 0. Each such dot product runs one fixed order, whatever the
+layout: lane l of a warp takes feature columns 4l + 128k + j
+(k = 0, 1, ..., j = 0..3) in one fp32 fmaf chain, and a fixed xor
+butterfly sums the 32 partials. So the live tiles of the three layouts
+are equal bit for bit. Masked cells are +0.0 (the Pallas kernels
+multiply by the mask and may leave -0.0 or, for a +-inf or NaN dot,
+NaN there; no edge reads a masked cell), and tiles without an edge —
+padded dense-W slots, the ragged dummy slot, merge tail slots — are all
++0.0. The kernels add +0.0 to every live cell, so no -0.0 appears. The
+plain versions multiply whole tiles with ``torch.bmm`` and keep the
+same rule on masked cells.
 
 Each wrapper takes its plain version only for tensors on the CPU; for
 CUDA tensors it launches its kernel on the current stream or raises.
@@ -152,6 +157,8 @@ def _check(name, mask, x, y):
     rb, bc = mask.shape[-2:]
     if (rb, bc) not in BLOCKINGS:
         raise ValueError(f"{name}: {rb}x{bc} tiles; the kernels take {BLOCKINGS}")
+    if mask.data_ptr() % (rb * bc // 8):  # one vector load of rb*bc/32 cells a lane
+        raise ValueError(f"{name}: the mask tiles must be {rb * bc // 8}-byte aligned")
     if x.shape[1] != y.shape[1]:
         raise ValueError(f"{name}: x {tuple(x.shape)} and y {tuple(y.shape)} disagree on F")
     return rb, bc

@@ -221,63 +221,122 @@ def test_fused_attention_kernels(cuda, kind, d):
     assert not ragged[empty].any()
 
 
+def _cliques(n_cliques, size):
+    """Block-diagonal cliques of ``size`` nodes: at size 16 every 8x8 and
+    16x8 tile of the diagonal has all its cells live."""
+    n = n_cliques * size
+    rows = np.repeat(np.arange(n), size)
+    cols = rows // size * size + np.tile(np.arange(size), n)
+    return CSR((np.arange(n + 1) * size).astype(np.int32), cols.astype(np.int32),
+               np.ones(n * size, np.float32), n, n)
+
+
 def _sddmm_graph(kind):
     """Structural graphs for the SDDMM kernels: a skewed multigraph (mask
-    cells of duplicate edges), one hub over many merge tiles, and one
-    with empty row blocks (dummy slots)."""
+    cells of duplicate edges), one hub over many merge tiles, one with
+    empty row blocks (dummy slots), and block-diagonal cliques (fully
+    live tiles)."""
     if kind == "hub_skew":
         return hub_skew(3000, 4, 0.05, 300, seed=2)
     if kind == "single_hub":
         return single_hub(4096, nnz_frac=0.9, seed=1)
+    if kind == "cliques":
+        return _cliques(25, 16)
     return _attn_graph("empty_rows")
 
 
-@pytest.mark.parametrize("kind", ["hub_skew", "single_hub", "empty_rows"])
+def _up(a, device):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _sddmm_all(csr, rb, x, y, device):
+    """The ragged and dense-W SDDMM kernels on csr's rb x 8 layouts
+    against their plain versions, and their live tiles bit-equal; padded
+    tiles +0.0. Returns (ragged output, its operands, the layouts)."""
+    bell = csr_to_block_ell(csr, rb=rb, bc=8)
+    rag = bell.to_ragged()
+    rargs = (_up(rag.slot_rowblk, device), _up(rag.slot_colblk, device),
+             _up(np.minimum(rag.slot_vals, 1.0), device))
+    dargs = (_up(bell.colblk, device), _up(np.minimum(bell.vals, 1.0), device))
+    ragged = ksd.sddmm_ragged_ell(*rargs, x, y)
+    dense = ksd.sddmm_block_ell(*dargs, x, y)
+    _close(ragged, ksd.sddmm_ragged_ell_plain(*rargs, x, y))
+    _close(dense, ksd.sddmm_block_ell_plain(*dargs, x, y))
+    live = _up(np.arange(bell.width)[None, :] < np.maximum(bell.nslots, 1)[:, None], device)
+    assert torch.equal(dense[live], ragged)
+    assert not dense[~live].any() and not torch.signbit(dense[~live]).any()
+    return ragged, rargs, bell, rag
+
+
+@pytest.mark.parametrize("kind", ["hub_skew", "single_hub", "empty_rows", "cliques"])
 @pytest.mark.parametrize("rb", [8, 16])
-@pytest.mark.parametrize("f", [16, 41, 256])
+@pytest.mark.parametrize("f", [16, 41, 256, 602])
 def test_sddmm_kernels(cuda, kind, rb, f):
     """Each SDDMM kernel against its plain version; the live tiles of the
     three layouts are bit-equal; padded, dummy and tail tiles are +0.0;
-    a second launch gives the same bits."""
+    no -0.0 anywhere; a second launch gives the same bits. On the
+    cliques every stored tile is fully live."""
     csr = _sddmm_graph(kind).structural()
-    bell = csr_to_block_ell(csr, rb=rb, bc=8)
-    rag = bell.to_ragged()
     g = torch.Generator().manual_seed(f)
     x = torch.randn(csr.n_rows, f, generator=g).to(cuda)
     y = torch.randn(csr.n_cols, f, generator=g).to(cuda)
 
-    def up(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
-
-    rmask = up(np.minimum(rag.slot_vals, 1.0))
-    rargs = (up(rag.slot_rowblk), up(rag.slot_colblk), rmask)
-    dargs = (up(bell.colblk), up(np.minimum(bell.vals, 1.0)))
     before = dict(ksd.LAUNCHES)
-    ragged = ksd.sddmm_ragged_ell(*rargs, x, y)
-    dense = ksd.sddmm_block_ell(*dargs, x, y)
-    torch.cuda.synchronize()
+    ragged, rargs, bell, rag = _sddmm_all(csr, rb, x, y, cuda)
     assert ksd.LAUNCHES["sddmm_ragged_ell"] == before["sddmm_ragged_ell"] + 1
     assert ksd.LAUNCHES["sddmm_block_ell"] == before["sddmm_block_ell"] + 1
-    _close(ragged, ksd.sddmm_ragged_ell_plain(*rargs, x, y))
-    _close(dense, ksd.sddmm_block_ell_plain(*dargs, x, y))
+    if kind == "cliques":
+        assert (rag.slot_vals == 1).all()
     assert torch.equal(ragged, ksd.sddmm_ragged_ell(*rargs, x, y))
-    live = torch.from_numpy(
-        np.arange(bell.width)[None, :] < np.maximum(bell.nslots, 1)[:, None]).to(cuda)
-    assert torch.equal(dense[live], ragged)
-    assert not dense[~live].any() and not torch.signbit(dense[~live]).any()
+    assert not torch.signbit(ragged[ragged == 0]).any()
     dummy_slots = rag.blkptr[:-1][bell.nslots == 0]
-    assert not ragged[up(dummy_slots).long()].any()
+    assert not ragged[_up(dummy_slots, cuda).long()].any()
     if rb == 8:
         for ts in (3, 8, 16):
             mp = build_merge_path(rag, tile_slots=ts)
-            margs = (up(mp.blkptr), up(mp.slot_colblk), up(mp.tile_rowblk),
-                     up(np.minimum(mp.tile_vals, 1.0)))
+            margs = [_up(a, cuda) for a in (mp.blkptr, mp.slot_colblk, mp.tile_rowblk,
+                                            np.minimum(mp.tile_vals, 1.0))]
             merged = ksd.sddmm_merge_path(*margs, x, y)
             _close(merged, ksd.sddmm_merge_path_plain(*margs, x, y))
             flat = merged.reshape(-1, 8, 8)
             assert torch.equal(flat[: mp.n_slots], ragged)
             assert not flat[mp.n_slots:].any()
             assert torch.equal(merged, ksd.sddmm_merge_path(*margs, x, y))
+
+
+@pytest.mark.parametrize("rb", [8, 16])
+def test_sddmm_negative_zero_rows_give_plus_zero(cuda, rb):
+    """X and Y holding -0.0 in whole rows: the live cells that pair such a
+    row read +0.0, and no cell of any layout is -0.0."""
+    csr = _sddmm_graph("hub_skew").structural()
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(csr.n_rows, 64, generator=g)
+    y = torch.randn(csr.n_cols, 64, generator=g)
+    x[::3] = -0.0
+    y[1::4] = -0.0
+    x, y = x.to(cuda), y.to(cuda)
+    ragged, _, _, rag = _sddmm_all(csr, rb, x, y, cuda)
+    assert not torch.signbit(ragged[ragged == 0]).any()
+    rows = torch.arange(rb, device=cuda)
+    x_zero = torch.signbit(x[:, 0]) & (x[:, 0] == 0)
+    rowblk = _up(rag.slot_rowblk, cuda).long()
+    hit = x_zero[(rowblk[:, None] * rb + rows).clamp(max=csr.n_rows - 1)]
+    assert hit.any() and not ragged[hit].any()
+
+
+@pytest.mark.parametrize("rb", [8, 16])
+def test_sddmm_inf_and_nan_in_y_rows_only_masked_cells_pair_with(cuda, rb):
+    """Y holding +inf, -inf and NaN in rows that no edge reads (every odd
+    column): the masked cells of those rows stay +0.0 and the live cells
+    match the plain version, so the whole output is finite."""
+    csr = _spread(_sddmm_graph("hub_skew")).structural()
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(csr.n_rows, 41, generator=g).to(cuda)
+    y = torch.randn(csr.n_cols, 41, generator=g)
+    y[1::6], y[3::6], y[5::6] = float("inf"), float("-inf"), float("nan")
+    ragged, _, _, _ = _sddmm_all(csr, rb, x, y.to(cuda), cuda)
+    assert torch.isfinite(ragged).all()
+    assert not ragged[..., 1::2].any() and not torch.signbit(ragged[..., 1::2]).any()
 
 
 def test_sddmm_explicit_zero_edges_keep_their_dot(cuda):

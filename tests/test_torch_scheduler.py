@@ -140,6 +140,32 @@ def test_estimates_follow_the_ported_family():
         assert mine == pytest.approx(theirs, rel=1e-12), v.full_name()
 
 
+def test_h100_charges_sddmm_families_by_their_own_step():
+    """The CPU profiles charge the SDDMM block families ``step_s``, as the
+    JAX package does. The h100 profile charges them ``sddmm_step_s`` (fitted
+    on the SDDMM kernel) and the SpMM families ``step_s`` (fitted on the
+    ragged SpMM kernel): moving one constant moves only its own families'
+    estimates."""
+    for hw in (HardwareSpec.cpu(), HardwareSpec.cpu_wide()):
+        assert hw.sddmm_step_s == hw.step_s
+    h100 = HardwareSpec.h100()
+    assert h100.sddmm_step_s != h100.step_s
+    csr = hub_skew(2000, 4, 0.05, 400, seed=2)
+    for op, moved, kept in (("attention_bwd_e", "sddmm_step_s", "step_s"),
+                            ("spmm", "step_s", "sddmm_step_s")):
+        feat = InputFeatures.from_csr(csr, 256, op)
+        pool = [v for v in registry.candidates(feat, h100, CPU, include_kernels=True)
+                if v.name in ("block_ell_cuda", "ragged_ell_cuda", "merge_path_cuda")]
+        assert {v.name for v in pool} == {"block_ell_cuda", "ragged_ell_cuda",
+                                          "merge_path_cuda"}, op
+        for v in pool:
+            base = est.estimate(feat, h100, v.name, v.knobs)
+            more = dataclasses.replace(h100, **{moved: 2 * getattr(h100, moved)})
+            other = dataclasses.replace(h100, **{kept: 2 * getattr(h100, kept)})
+            assert est.estimate(feat, more, v.name, v.knobs) > base, (op, v.full_name())
+            assert est.estimate(feat, other, v.name, v.knobs) == base, (op, v.full_name())
+
+
 def test_device_rule():
     if torch.cuda.is_available():
         pytest.skip("the rule under test is the one for machines without a card")

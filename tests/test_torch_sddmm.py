@@ -11,8 +11,11 @@ may leave -0.0 on masked cells where the port writes +0.0; the
 comparisons treat the two zeros as equal. The cases cover row blocks
 with only the dummy slot, explicit-zero edges (the mask comes from
 structure), duplicate edges, a hub over many merge tiles, partial last
-merge tiles, and F = 16, 41 (padded to 64 for the Pallas kernels) and
-256."""
+merge tiles, fully live clique tiles, F = 16, 41 (padded to 64 for the
+Pallas kernels), 256 and 602, X and Y holding -0.0 in whole rows, and
++-inf and NaN in Y rows that only masked cells pair with (there the
+Pallas kernels leave NaN on the masked cells and the port +0.0; live
+cells agree)."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -41,6 +44,11 @@ GRAPHS = ["empty_rows", "single_hub", "hub_skew"]
 def _graph(kind):
     if kind == "hub_skew":  # duplicate edges: their mask cell is 1 once
         return hub_skew(150, 3, 0.1, 40, seed=1)
+    if kind == "cliques":  # two block-diagonal 16-cliques: fully live tiles
+        rows = np.repeat(np.arange(32), 16)
+        cols = rows // 16 * 16 + np.tile(np.arange(16), 32)
+        return CSR((np.arange(33) * 16).astype(np.int32), cols.astype(np.int32),
+                   np.ones(512, np.float32), 32, 32)
     if kind == "single_hub":  # one hub row over many merge tiles
         return single_hub(128, nnz_frac=0.9, seed=1)
     # rows 8..31 empty (dummy slots), a quarter of the edges valued 0
@@ -147,18 +155,15 @@ def test_backward_oracles_match_jnp(kind):
 
 
 # ------------------------------------------- plain versions vs Pallas
-@pytest.mark.parametrize("kind,f", [("empty_rows", 16), ("single_hub", 41),
-                                    ("hub_skew", 256), ("empty_rows", 41)])
-def test_plain_versions_match_pallas(kind, f):
-    """Dense-W and ragged at 8x8 and 16x8 and merge-path at tile_slots 3
-    and 16 (a partial last tile in every case) against the Pallas kernels
-    in interpret mode; the port's live tiles agree across layouts bit for
-    bit, and its padded, dummy and tail tiles are +0.0. F = 16, 41 and
-    256, the F of chip_smoke's edge cases: Pallas f-chunks of 32 and 64,
-    and two chunks of 128."""
-    csr = _graph(kind).structural()
-    x, y = _xy(csr, f)
+def _plain_and_pallas(csr, x, y):
+    """(label, port output, Pallas output in interpret mode, mask) for
+    dense-W and ragged at 8x8 and 16x8 and merge-path at tile_slots 3 and
+    16, on the same numpy inputs. Checks on the way that the port's live
+    tiles agree across layouts bit for bit and that its padded, dummy and
+    tail tiles are +0.0."""
+    f = x.shape[1]
     padded_f, chunk = jx_registry._sddmm_chunk(f)
+    out = []
     for rb in (8, 16):
         jb = jx_csr_to_block_ell(_jx(csr), rb=rb, bc=8)
         bell = csr_to_block_ell(csr, rb=rb, bc=8)
@@ -167,12 +172,13 @@ def test_plain_versions_match_pallas(kind, f):
         yp = jnp.asarray(_pad(y, bell.n_col_blocks * 8, padded_f))
         dmask, rmask = _mask(bell.vals), _mask(rag.slot_vals)
         dense = ksd.sddmm_block_ell(*_t(bell.colblk, dmask, x, y))
-        _close(dense, jk.sddmm_block_ell(jnp.asarray(jb.colblk), jnp.asarray(dmask), xp, yp,
-                                         f_chunk=chunk, interpret=True))
+        out.append((f"dense-W rb={rb}", dense, jk.sddmm_block_ell(
+            jnp.asarray(jb.colblk), jnp.asarray(dmask), xp, yp, f_chunk=chunk,
+            interpret=True), dmask))
         ragged = ksd.sddmm_ragged_ell(*_t(rag.slot_rowblk, rag.slot_colblk, rmask, x, y))
-        _close(ragged, jk.sddmm_ragged_ell(
+        out.append((f"ragged rb={rb}", ragged, jk.sddmm_ragged_ell(
             jnp.asarray(rag.slot_rowblk), jnp.asarray(rag.slot_colblk), jnp.asarray(rmask),
-            xp, yp, f_chunk=chunk, interpret=True))
+            xp, yp, f_chunk=chunk, interpret=True), rmask))
         live = np.arange(bell.width)[None, :] < np.maximum(bell.nslots, 1)[:, None]
         assert torch.equal(dense[torch.from_numpy(live)], ragged)
         assert not dense[torch.from_numpy(~live)].any()
@@ -184,13 +190,67 @@ def test_plain_versions_match_pallas(kind, f):
             tmask = _mask(mp.tile_vals)
             merged = ksd.sddmm_merge_path(*_t(mp.blkptr, mp.slot_colblk, mp.tile_rowblk,
                                               tmask, x, y))
-            _close(merged, jk.sddmm_merge_path(
+            out.append((f"merge ts={ts}", merged, jk.sddmm_merge_path(
                 jnp.asarray(mp.blkptr), jnp.asarray(mp.slot_colblk),
                 jnp.asarray(mp.tile_rowblk), jnp.asarray(tmask), xp, yp,
-                f_chunk=chunk, interpret=True))
+                f_chunk=chunk, interpret=True), tmask))
             flat = merged.reshape(-1, 8, 8)
             assert torch.equal(flat[: mp.n_slots], ragged)
             assert not flat[mp.n_slots:].any()
+    return out
+
+
+@pytest.mark.parametrize("kind,f", [("empty_rows", 16), ("single_hub", 41),
+                                    ("hub_skew", 256), ("empty_rows", 41),
+                                    ("cliques", 602)])
+def test_plain_versions_match_pallas(kind, f):
+    """Dense-W and ragged at 8x8 and 16x8 and merge-path at tile_slots 3
+    and 16 (a partial last tile in every case) against the Pallas kernels
+    in interpret mode; the port's live tiles agree across layouts bit for
+    bit, and its padded, dummy and tail tiles are +0.0. F = 16, 41, 256
+    and 602, the F of chip_smoke's edge cases: Pallas f-chunks of 32 and
+    64, two chunks of 128, and 19 of 32; on the cliques every stored tile
+    is fully live."""
+    csr = _graph(kind).structural()
+    if kind == "cliques":
+        assert (csr_to_block_ell(csr, rb=16, bc=8).to_ragged().slot_vals == 1).all()
+    x, y = _xy(csr, f)
+    for _, got, want, _ in _plain_and_pallas(csr, x, y):
+        _close(got, want)
+
+
+def test_negative_zero_rows_match_pallas():
+    """X and Y holding -0.0 in whole rows: the plain versions agree with
+    the Pallas kernels (both zeros compare equal), and the cells of the
+    -0.0 X rows are zero."""
+    csr = _graph("hub_skew").structural()
+    x, y = _xy(csr, 24, seed=7)
+    x[::3], y[1::4] = -0.0, -0.0
+    for label, got, want, _ in _plain_and_pallas(csr, x, y):
+        _close(got, want)
+        if label == "ragged rb=8":
+            rag = csr_to_block_ell(csr).to_ragged()
+            rows = np.minimum(rag.slot_rowblk[:, None] * 8 + np.arange(8), csr.n_rows - 1)
+            hit = torch.from_numpy(x[rows, 0] == 0)
+            assert hit.any() and not got[hit].any()
+
+
+def test_inf_and_nan_in_y_rows_only_masked_cells_pair_with():
+    """Y holding +inf, -inf and NaN in rows that no edge reads (the
+    graph's columns spread to even ones): the plain versions keep those
+    masked cells +0.0 and agree with the Pallas kernels on every live
+    cell; the Pallas kernels multiply by the mask and leave NaN there
+    (ROADMAP.md Queue 3, SDDMM masked cells)."""
+    s = _graph("hub_skew").structural()
+    csr = CSR(s.rowptr, s.colind * 2, s.val, s.n_rows, 2 * s.n_cols)
+    x, y = _xy(csr, 41, seed=8)
+    y[1::6], y[3::6], y[5::6] = np.inf, -np.inf, np.nan
+    for label, got, want, mask in _plain_and_pallas(csr, x, y):
+        live = torch.from_numpy(mask > 0)
+        assert torch.isfinite(got).all(), label
+        assert not got[~live].any() and not torch.signbit(got[~live]).any(), label
+        _close(got[live], np.asarray(want)[mask > 0])
+        assert np.isnan(np.asarray(want)[..., 1::2]).any(), label
 
 
 def test_wrappers_check_their_operands():
