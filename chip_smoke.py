@@ -44,17 +44,30 @@ order; any failure raises and the script exits non-zero:
    forward must launch its kernel and match the reference logits.
 5. Attention kernels against their plain versions, on edge cases (row
    blocks with only the dummy slot, rows without edges inside non-empty
-   row blocks, one hub over 2048 slots, a deduplicated hub_skew graph;
-   D = 64 and 256) and at the attention slice's shapes
-   (reddit_like(0.25, seed=0).dedup_edges(), D = 256), same tolerance
-   (an online softmax against the plain version's two-pass one); dense-W
-   must equal ragged bit for bit and a second launch must give the same
-   bits. Times of each kernel and its plain version beside the bound
-   (the mask tiles and index arrays read once, q, k, v read once, out
-   written once; 4 * nnz * D FLOPs), and of the composed CSR pipeline
+   row blocks, one hub over 2048 slots, a deduplicated hub_skew graph,
+   block-diagonal cliques whose tiles are fully live; D = 41, 64, 256
+   and 602, the first and last not 16-byte aligned; logits rising by ~40
+   along each row, so later slots raise a row's max and the rescale
+   carries the result), on the inf/NaN trap (v holding +-inf and NaN in
+   rows that tiles pair only with masked cells, where the kernels must
+   match the CSR oracle ref.csr_attention_ref; the plain versions, like
+   the Pallas kernels, give NaN there), and at the attention slice's
+   shapes (reddit_like(0.25, seed=0).dedup_edges(), D = 256), same
+   tolerance (an online softmax against the plain version's two-pass
+   one); dense-W must equal ragged bit for bit, a second launch must
+   give the same bits and rows without edges must be 0. Times of each
+   kernel and its plain version beside the bound (the mask tiles and
+   index arrays read once, q, k, v read once, out written once;
+   4 * nnz * D FLOPs); of the library composition
+   torch.sparse.sampled_addmm -> torch.sparse.softmax -> torch.sparse.mm
+   (``library_pipe_ms``, held against the plain version on rows with
+   edges; the port never calls it); and of the composed CSR pipeline
    (gather SDDMM -> row softmax -> gather SpMM), the guardrail's
-   baseline: no single PyTorch call computes CSR attention, so
-   ``library_ms`` is null and the pipeline's time is ``baseline_pipe_ms``.
+   baseline (``baseline_pipe_ms``). No single PyTorch call computes CSR
+   attention, so ``library_ms`` is null. HardwareSpec.attn_step_s fitted
+   against estimate.py's terms, with both fused estimates. Then both
+   kernels in the wrappers' chunks and unsplit (the measurement behind
+   kernels/attention.py's chunks).
 6. Attention main path: a GAT layer (configs/gnn_sage width 256, input
    width 602) with seeded random weights and features on the
    deduplicated Reddit-0.25 graph, forward under torch.no_grad through
@@ -684,31 +697,33 @@ def _qkv(csr, d, device, seed):
             torch.randn(csr.n_cols, d, generator=g).to(device))
 
 
-def _attn_run_all(lay, q, k, v, n_rows):
-    """kernel name -> (kernel call, plain call)."""
+def _attn_run_all(lay, q, k, v, n_rows, cs=None):
+    """kernel name -> (kernel call in chunks of cs slots (default: the
+    wrappers'), plain call)."""
     from repro_torch.kernels import attention as ka
 
     dense, ragged = lay["dense"], lay["ragged"]
     return {
         "fused_csr_attention": (
-            lambda: ka.fused_csr_attention(*dense, q, k, v, n_rows=n_rows),
+            lambda: ka.fused_csr_attention(*dense, q, k, v, n_rows=n_rows, cs=cs),
             lambda: ka.fused_csr_attention_plain(*dense, q, k, v, n_rows=n_rows),
         ),
         "fused_ragged_attention": (
-            lambda: ka.fused_ragged_attention(*ragged, q, k, v, n_rows=n_rows),
+            lambda: ka.fused_ragged_attention(*ragged, q, k, v, n_rows=n_rows, cs=cs),
             lambda: ka.fused_ragged_attention_plain(*ragged, q, k, v, n_rows=n_rows),
         ),
     }
 
 
-def check_attention(tag, csr, lay, q, k, v, device) -> dict:
-    """Both attention kernels against their plain versions; dense-W ==
-    ragged bit for bit; a second launch gives the same bits; rows without
-    edges come out 0. Returns max errors."""
+def check_attention(tag, csr, lay, q, k, v, device, cs=None) -> dict:
+    """Both attention kernels (in chunks of cs slots, default the
+    wrappers') against their plain versions; dense-W == ragged bit for
+    bit; a second launch gives the same bits; rows without edges come out
+    0. Returns max errors."""
     import torch
 
     errs, outs = {}, {}
-    for name, (kern, plain) in _attn_run_all(lay, q, k, v, csr.n_rows).items():
+    for name, (kern, plain) in _attn_run_all(lay, q, k, v, csr.n_rows, cs).items():
         got = kern()
         sync(device)
         errs[name] = check_close(f"{tag} {name}", got, plain())
@@ -722,10 +737,38 @@ def check_attention(tag, csr, lay, q, k, v, device) -> dict:
     return errs
 
 
+def _ramp_qkv(csr, d, device, seed):
+    """q, k, v whose logits rise with the column, by ~40 over the columns:
+    a row's later slots raise its max by a large margin, so the online
+    rescale (alpha ~ exp(-40) at the extreme) carries the result."""
+    import torch
+
+    q, k, v = _qkv(csr, d, device, seed)
+    u = torch.nn.functional.normalize(torch.ones(d, device=device), dim=0)
+    ramp = torch.arange(csr.n_cols, device=device, dtype=torch.float32) / csr.n_cols
+    q = q * 0.1 + u
+    k = k * 0.1 + (40.0 * d ** 0.5) * ramp[:, None] * u
+    return q, k, v
+
+
+def _most_chunks(lay, cs) -> int:
+    """The most chunks of cs slots a row block of lay's ragged layout is
+    split into: above 1, the kernels' combine runs."""
+    import torch
+
+    from repro_torch.kernels import attention as ka
+
+    return int(torch.diff(ka.ragged_chunk_table(lay["ragged"][0], cs)[0]).max())
+
+
 def attention_edge_cases(device) -> None:
-    """Small deduplicated graphs that hit the attention kernels' corners."""
+    """Small deduplicated graphs that hit the attention kernels' corners:
+    D = 41 and 602 (rows not 16-byte aligned), fully live clique tiles, a
+    ramp of logits that makes later slots raise a row's max, then the
+    inf/NaN trap on v rows."""
     import numpy as np
 
+    from repro_torch.kernels import attention as ka
     from repro_torch.sparse import CSR, hub_skew, single_hub
 
     rng = np.random.default_rng(5)
@@ -733,26 +776,103 @@ def attention_edge_cases(device) -> None:
     deg[2] = deg[45] = 0  # rows without edges inside row blocks that have some
     empty = CSR(np.r_[0, np.cumsum(deg)].astype(np.int32),
                 rng.integers(0, 70, int(deg.sum())).astype(np.int32), None, deg.size, 70)
-    hub = single_hub(HUB_N, nnz_frac=0.9, seed=1)
+    # a hub row block of at least two chunks at every D
+    hub = single_hub(max(HUB_N, 16 * ka.chunk_slots(IN_DIM)), nnz_frac=0.9, seed=1)
     skew = hub_skew(3000, 4, 0.05, 300, seed=2)
-    for tag, csr in (("empty-blocks/rows", empty), ("single-hub", hub), ("hub-skew", skew)):
+    cases = (("empty-blocks/rows", empty), ("single-hub", hub), ("hub-skew", skew),
+             ("cliques", _cliques(25, 16)))
+    for tag, csr in cases:
         csr = csr.dedup_edges()
         lay = _attn_layouts(csr, device)
-        if tag == "single-hub" and lay["width"] < HUB_N // 8:
+        if tag == "single-hub" and lay["width"] < hub.n_cols // 8:
             raise AssertionError(f"single-hub: the hub spans {lay['width']} slots only")
-        for d in (64, 256):
+        if tag == "cliques" and not bool((lay["ragged"][2] == 1).all()):
+            raise AssertionError("cliques: a stored tile is not fully live")
+        for d in (41, 64, 256, IN_DIM):
+            if tag == "single-hub" and _most_chunks(lay, ka.chunk_slots(d)) < 2:
+                raise AssertionError(f"single-hub D={d}: the hub row block is not split")
             q, k, v = _qkv(csr, d, device, seed=d)
             check_attention(f"{tag} D={d}", csr, lay, q, k, v, device)
+            if d != 64:  # every row block of more than 32 slots split
+                check_attention(f"{tag} D={d} chunks of 32", csr, lay, q, k, v, device, cs=32)
+        if tag in ("single-hub", "hub-skew"):
+            for d in (64, 256):
+                check_attention(f"{tag} ramp D={d}", csr, lay,
+                                *_ramp_qkv(csr, d, device, seed=d), device)
     log("attention edge cases: empty row blocks (dummy slot), rows without edges in "
-        f"non-empty blocks, single hub over {HUB_N // 8} slots, hub_skew; D=64,256: ok")
+        f"non-empty blocks, single hub over {hub.n_cols // 8} slots (split at every D), "
+        f"hub_skew, fully live clique tiles; D=41,64,256,{IN_DIM}, also in chunks of 32 "
+        "slots; logits rising by ~40 along rows: ok")
+    attention_inf_nan_trap(skew.dedup_edges(), device)
+
+
+def attention_inf_nan_trap(graph, device) -> None:
+    """v holds +inf, -inf and NaN in rows that no edge reads but that share
+    a column block with rows that edges do read (graph's column j moved to
+    2j: every odd column is unread). The plain versions multiply whole
+    tiles and give NaN (0 * inf), as the Pallas kernels do; the kernels
+    never read those rows and must agree with the CSR oracle
+    (ref.csr_attention_ref)."""
+    import torch
+
+    from repro_torch.kernels import attention as ka
+    from repro_torch.kernels import ref
+    from repro_torch.sparse import CSR
+
+    csr = CSR(graph.rowptr, graph.colind * 2, None, graph.n_rows, 2 * graph.n_cols)
+    lay = _attn_layouts(csr, device)
+    rp, ci = (torch.from_numpy(a).to(device) for a in (csr.rowptr, csr.colind))
+    for d in (41, 256):
+        q, k, v = _qkv(csr, d, device, seed=d + 1)
+        v[1::2] = torch.tensor([float("inf"), float("-inf"), float("nan")],
+                               device=device).repeat(csr.n_cols)[: csr.n_cols // 2, None]
+        want = ref.csr_attention_ref(rp, ci, q, k, v)
+        if not bool(torch.isfinite(want).all()):
+            raise AssertionError("attention inf/NaN trap: the CSR oracle is not finite")
+        for name, (kern, plain) in _attn_run_all(lay, q, k, v, csr.n_rows).items():
+            check_close(f"attention inf/NaN trap D={d} {name}", kern(), want)
+        if not bool(torch.isnan(ka.fused_ragged_attention_plain(
+                *lay["ragged"], q, k, v, n_rows=csr.n_rows)).any()):
+            raise AssertionError("attention inf/NaN trap: the plain version gave no NaN")
+    log("attention inf/NaN trap: v rows paired only with masked cells hold +-inf/NaN; both "
+        "kernels match ref.csr_attention_ref (the plain versions give NaN): ok")
+
+
+def _library_pipe(graph, device, scale):
+    """torch.sparse.sampled_addmm (scaled) -> torch.sparse.softmax (dim 1,
+    COO) -> torch.sparse.mm on graph's pattern: the library calls that
+    compose CSR attention (no single call computes it). The port never
+    calls them. Returns fn(q, k, v)."""
+    import torch
+
+    rowptr = torch.from_numpy(graph.rowptr).to(device)
+    colind = torch.from_numpy(graph.colind).to(device)
+    pattern = torch.sparse_csr_tensor(rowptr, colind, torch.ones(graph.nnz, device=device),
+                                      size=(graph.n_rows, graph.n_cols),
+                                      check_invariants=False)
+    coo_idx = torch.stack([torch.repeat_interleave(
+        torch.arange(graph.n_rows, device=device), torch.diff(rowptr.long())), colind.long()])
+    size = (graph.n_rows, graph.n_cols)
+
+    def run(q, k, v):
+        logits = torch.sparse.sampled_addmm(pattern, q, k.t(), beta=0.0, alpha=scale)
+        probs = torch.sparse.softmax(torch.sparse_coo_tensor(
+            coo_idx, logits.values(), size, is_coalesced=True), 1)
+        return torch.sparse.mm(torch.sparse_csr_tensor(
+            rowptr, colind, probs.values(), size=size, check_invariants=False), v)
+
+    return run
 
 
 def attention_kernel_phase(graph, lay, device, reps: int) -> dict:
     """Phase 5 at the slice's shapes: the deduplicated Reddit-0.25 graph,
     D = 256, on its uploaded 8x8 layouts ``lay``. Returns the kernel
     records."""
+    import torch
+
     from repro_torch.core.probe import time_callable
     from repro_torch.core.registry import _dev
+    from repro_torch.kernels import attention as ka
     from repro_torch.kernels import baselines as kb
 
     q, k, v = _qkv(graph, D_ATTN, device, seed=7)
@@ -763,6 +883,19 @@ def attention_kernel_phase(graph, lay, device, reps: int) -> dict:
     base_ms = time_callable(lambda: kb.attention_csr(aux, q, k, v), device,
                             iters=reps).median_ms
     log(f"composed CSR pipeline (guardrail baseline) D={D_ATTN}: {base_ms} ms")
+    del aux
+    lib = _library_pipe(graph, device, 1.0 / D_ATTN ** 0.5)
+    has = torch.from_numpy(graph.degrees > 0).to(device)
+    got = lib(q, k, v)
+    lib_err = check_close("library pipe vs plain (rows with edges)", got[has],
+                          ka.fused_ragged_attention_plain(*lay["ragged"], q, k, v,
+                                                          n_rows=graph.n_rows)[has])
+    del got
+    lib_pipe_ms = time_callable(lambda: lib(q, k, v), device, iters=reps).median_ms
+    log(f"library composition sampled_addmm -> sparse.softmax -> sparse.mm D={D_ATTN}: "
+        f"{lib_pipe_ms} ms; max |library - plain| on rows with edges {lib_err:.3e}")
+    del lib
+    _empty_cache(device)
     records = {}
     io_bytes = (2 * graph.n_rows + 2 * graph.n_cols) * D_ATTN * 4  # q, k, v, out
     flops = 4.0 * graph.nnz * D_ATTN
@@ -777,16 +910,72 @@ def attention_kernel_phase(graph, lay, device, reps: int) -> dict:
             "bound_ms": max(byts / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3,
             "bound_by": "bytes" if byts / HBM_BYTES_PER_S >= flops / FP32_FLOPS
             else "operations",
-            "library_ms": None, "baseline_pipe_ms": base_ms,
+            "library_ms": None, "library_pipe_ms": lib_pipe_ms, "baseline_pipe_ms": base_ms,
         }
         records[name] = rec
         log(f"  {name} D={D_ATTN}: {json.dumps(rec)}")
-    rag = records["fused_ragged_attention"]
-    log("fused_ragged_attention s per live slot beyond the bound: "
-        f"{(rag['ms'] - rag['bound_ms']) * 1e-3 / lay['n_slots']:.4e}")
-    del aux
+    attn_step_fit(graph, records, device)
+    chunk_vs_unsplit(graph, lay, q, k, v, device, reps)
     _empty_cache(device)
     return records
+
+
+def attn_step_fit(graph, records, device) -> None:
+    """HardwareSpec.attn_step_s fitted on the ragged kernel against
+    estimate.py's own terms: (measured - the estimate at attn_step_s = 0)
+    / the slots it charges. Then both fused estimates beside the measured
+    times, on the h100 profile and on the whole-tile model charged
+    step_s per slot (the JAX package's, and the h100 profile's before
+    attn_live_gathers)."""
+    import dataclasses
+    import functools
+
+    from repro_torch.core import HardwareSpec, InputFeatures, estimate, registry
+
+    feat = InputFeatures.from_csr(graph, D_ATTN, "attention")
+    hw = HardwareSpec.h100()
+    whole_tile = dataclasses.replace(hw, attn_live_gathers=False, attn_step_s=hw.step_s)
+    knobs = {v.name: v.knobs for v in registry.candidates(feat, hw, device,
+                                                          include_kernels=True)}
+    for name, variant in (("fused_ragged_attention", "ragged_attention_cuda"),
+                          ("fused_csr_attention", "fused_attention_cuda")):
+        est = functools.partial(estimate.estimate, feat, variant=variant,
+                                knobs=knobs[variant])
+        e0 = est(dataclasses.replace(hw, attn_step_s=0.0))
+        slots = est(dataclasses.replace(hw, attn_step_s=1.0)) - e0
+        ms = records[name]["ms"]
+        if name == "fused_ragged_attention":
+            log(f"{name} s per slot beyond the estimate's roofline "
+                f"(HardwareSpec.attn_step_s): {max(0.0, (ms * 1e-3 - e0) / slots):.4e} "
+                f"({e0 * 1e3} ms roofline, {slots:.0f} slots)")
+        log(f"{name} D={D_ATTN}: estimate {est(hw) * 1e3} ms (h100 profile), "
+            f"{est(whole_tile) * 1e3} ms (whole-tile model at step_s); measured {ms} ms")
+
+
+def chunk_vs_unsplit(graph, lay, q, k, v, device, reps: int) -> None:
+    """Both kernels in the wrappers' chunks and with every row block in
+    one chunk (the tail that chunks remove): each held bit-equal across
+    layouts, unsplit within tolerance of chunked, and both timed; plus the
+    longest chains that bound the unsplit kernel."""
+    import numpy as np
+
+    from repro_torch.core.probe import time_callable
+
+    slots = np.diff(lay["ragged"][0].cpu().numpy())
+    deg = graph.degrees
+    log(f"chunks: slots per row block max {int(slots.max())}, mean {slots.mean():.1f}; "
+        f"edges per row max {int(deg.max())}, mean {deg.mean():.1f}")
+    outs, times = {}, {}
+    for label, cs in (("chunked", None), ("unsplit", 1 << 30)):
+        fns = _attn_run_all(lay, q, k, v, graph.n_rows, cs)
+        got = {name: kern() for name, (kern, _) in fns.items()}
+        check_equal(f"{label} dense-W vs ragged", *got.values())
+        outs[label] = got["fused_ragged_attention"]
+        del got
+        times[label] = {name: time_callable(kern, device, iters=reps).median_ms
+                        for name, (kern, _) in fns.items()}
+    check_close("unsplit vs chunked", outs["unsplit"], outs["chunked"])
+    log(f"chunked vs unsplit row blocks D={D_ATTN}: {json.dumps(times)}")
 
 
 def _empty_cache(device) -> None:

@@ -275,7 +275,12 @@ def estimate_attention(feat: InputFeatures, hw: HardwareSpec, variant: str,
     device memory that a per-op estimate never sees: SDDMM writes logits
     which softmax reads back, and softmax writes probs which the
     value-SpMM reads back (4 * nnz * 4 B of traffic). The fused kernels
-    keep logits/probs on chip, so their estimate has no inter-stage term.
+    keep logits/probs on chip, so their estimate has no inter-stage term;
+    they pay ``hw.attn_step_s`` per slot (``step_s`` in the JAX package,
+    the same value on the CPU profiles). The JAX package's model gathers
+    a k and a v tile and multiplies the whole tile per stored slot; with
+    ``hw.attn_live_gathers`` (the port's CUDA kernels) one k and one v row
+    are gathered, and one logit and one p·v row computed, per live cell.
     """
     nnz, f = feat.nnz, feat.f
     family = PORTED_FROM.get(variant, variant)
@@ -295,14 +300,18 @@ def estimate_attention(feat: InputFeatures, hw: HardwareSpec, variant: str,
         ragged = family == "ragged_attention_pallas"
         bc = knobs.get("bc", 8)
         eff = _block_ell_elems(feat, knobs, ragged, variant)  # padded tile work
-        # q/k/v/out streamed once; k,v tiles re-fetched per stored block;
-        # structural mask read once; no logits/probs round-trips
+        # q/k/v/out streamed once; structural mask read once; k and v
+        # gathered as below; no logits/probs round-trips
         bytes_moved = (feat.n_rows * 2 + feat.n_cols * 2) * f * BYTES_F32
         bytes_moved += eff * BYTES_F32  # mask tiles
-        bytes_moved += eff * (2.0 * f * BYTES_F32 / bc)  # k/v block gathers
-        flops = 4.0 * eff * f + 8.0 * eff  # sddmm + spmm + online softmax
+        if hw.attn_live_gathers:  # a k and a v row per live cell
+            cells, gather_bytes = nnz, 2.0 * f * BYTES_F32
+        else:  # a k and a v tile per stored slot, over its cells
+            cells, gather_bytes = eff, 2.0 * f * BYTES_F32 / bc
+        bytes_moved += cells * gather_bytes
+        flops = 4.0 * cells * f + 8.0 * cells  # sddmm + spmm + online softmax
         n_steps = _block_ell_steps(eff, knobs)
-        return _roofline(bytes_moved, flops, hw) + n_steps * hw.step_s
+        return _roofline(bytes_moved, flops, hw) + n_steps * hw.attn_step_s
     raise KeyError(variant)
 
 

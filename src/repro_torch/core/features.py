@@ -28,8 +28,13 @@ class HardwareSpec:
     ``step_s`` is the fixed charge per kernel step (one slot of one
     feature tile) and ``p_eff`` the number of row blocks the card works
     on at once; both feed estimate.py's block-ELL models.
-    ``sddmm_step_s`` is the same charge for the SDDMM block families; on
-    the CPU profiles it equals ``step_s``, as the JAX package charges.
+    ``sddmm_step_s`` is the same charge for the SDDMM block families and
+    ``attn_step_s`` the charge per slot for the fused attention kernels;
+    on the CPU profiles both equal ``step_s``, as the JAX package charges.
+    ``attn_live_gathers`` says the fused attention kernels gather k and v
+    rows and compute per live cell (the port's CUDA kernels), not per
+    stored tile (the Pallas kernels, which the CPU profiles model as the
+    JAX package does).
     ``layout_budget_bytes`` is the most one prepared layout table may
     take: the registry's fused-attention gates compare the JAX package's
     layout-size expressions against it (512 MB there, sized for a TPU).
@@ -41,6 +46,8 @@ class HardwareSpec:
     link_bw: float  # bytes/s per link
     step_s: float = 2e-7
     sddmm_step_s: float = 2e-7
+    attn_step_s: float = 2e-7
+    attn_live_gathers: bool = False
     p_eff: float = 16.0
     layout_budget_bytes: float = 512e6
 
@@ -71,13 +78,19 @@ class HardwareSpec:
         ragged layout of deduplicated Reddit-0.25 at D = 256 (19,884,395
         slots, 2 chunks), measured by chip_smoke.py's phase 7 (printed as
         ``HardwareSpec.sddmm_step_s``) on an NVIDIA H100 80GB HBM3 at a
-        700 W power limit. ``layout_budget_bytes`` is half
+        700 W power limit. ``attn_step_s`` is the ragged fused attention
+        kernel's time per slot beyond the roofline of estimate.py's own
+        live-cell terms (``attn_live_gathers``): (ms - roofline) / slots,
+        both as the estimate counts them, for the 8x8 ragged layout of
+        deduplicated Reddit-0.25 at D = 256, measured by chip_smoke.py's
+        phase 5 (printed as ``HardwareSpec.attn_step_s``) on an NVIDIA
+        H100 80GB HBM3 at a 700 W power limit. ``layout_budget_bytes`` is half
         the card's 80 GB (`current` reads the card's own total): one
         layout table may take half, the features, the outputs, a second
         candidate's table and the allocator's slack the rest."""
         return HardwareSpec("h100", 67e12, 3.35e12, 450e9, step_s=4.7774e-10,
-                            sddmm_step_s=1.8655e-10, p_eff=132.0,
-                            layout_budget_bytes=40e9)
+                            sddmm_step_s=1.8655e-10, attn_step_s=7.7567e-11,
+                            attn_live_gathers=True, p_eff=132.0, layout_budget_bytes=40e9)
 
     @staticmethod
     def from_profile(name: str) -> "HardwareSpec":

@@ -278,3 +278,103 @@ def test_every_candidate_matches_the_oracle_with_zero_weight_edges(monkeypatch):
     for cand in pool:
         run = cand.build(cand.prepare(csr), torch.device("cpu"))
         _close(run(*_t(q, k, v)), want)
+
+
+def _layout_tensors(csr):
+    bell = csr_to_block_ell(csr)
+    rag = bell.to_ragged()
+    rmask = (rag.slot_vals != 0).astype(np.float32)
+    return bell, rag, _t(rag.blkptr, rag.slot_colblk, rmask), _t(bell.colblk, _mask(bell))
+
+
+@pytest.mark.parametrize("kind", GRAPHS)
+@pytest.mark.parametrize("cs", [1, 3, 8, 32])
+def test_chunk_table_covers_each_slot_once_with_the_same_bounds(kind, cs):
+    """The kernels' chunks (chunk c of row block i: its slots c*cs ..
+    (c+1)*cs - 1 counted from its first slot) cover each ragged slot once
+    and each dense-W slot once, in slot order; ragged chunk c and dense-W
+    chunk c of a row block hold the same live slots, and dense-W's extra
+    chunks hold none. The workspace table gives each chunk of a split row
+    block its own entry, within the wrapper's bound."""
+    csr = _graph(kind)
+    bell, rag, (blkptr, _, _), _ = _layout_tensors(csr)
+    nrb, w = bell.n_row_blocks, bell.width
+    rb_r, s0_r, s1_r = ka.chunk_bounds(blkptr, 0, nrb, cs)
+    assert torch.equal(torch.cat([torch.arange(a, e) for a, e in
+                                  zip(s0_r.tolist(), s1_r.tolist())]),
+                       torch.arange(rag.n_slots))
+    rb_d, s0_d, s1_d = ka.chunk_bounds(None, w, nrb, cs)
+    assert torch.equal(torch.cat([torch.arange(a, e) for a, e in
+                                  zip(s0_d.tolist(), s1_d.tolist())]),
+                       torch.arange(nrb * w))
+    nslots = np.maximum(bell.nslots, 1)
+    for i in range(nrb):
+        ragged = [(a - rag.blkptr[i], e - rag.blkptr[i])
+                  for a, e in zip(s0_r[rb_r == i].tolist(), s1_r[rb_r == i].tolist())]
+        # dense-W's slots past nslots (the dummy slot's place: past 1) are padding
+        dense = [(a - i * w, min(e - i * w, int(nslots[i])))
+                 for a, e in zip(s0_d[rb_d == i].tolist(), s1_d[rb_d == i].tolist())]
+        assert ragged == dense[: len(ragged)]
+        assert all(a >= e for a, e in dense[len(ragged):])
+    chunk_ptr, ws_ptr = ka.ragged_chunk_table(blkptr, cs)
+    n_ch = torch.diff(chunk_ptr.long())
+    assert torch.equal(n_ch, torch.bincount(rb_r, minlength=nrb))
+    n_ws = torch.diff(ws_ptr.long())
+    assert torch.equal(n_ws, torch.where(n_ch > 1, n_ch, 0))
+    assert int(chunk_ptr[-1]) <= nrb + rag.n_slots // cs
+    assert int(ws_ptr[-1]) <= 2 * (rag.n_slots // cs)
+
+
+@pytest.mark.parametrize("kind", GRAPHS)
+@pytest.mark.parametrize("cs", [1, 3, 32])
+def test_chunked_then_combined_matches_pallas(kind, cs):
+    """The kernels' chunked computation in plain torch (per-chunk partial
+    states folded in chunk order) matches the fused Pallas kernels in
+    interpret mode, and its dense-W and ragged results are equal bit for
+    bit."""
+    csr = _graph(kind)
+    bell, rag, rargs, dargs = _layout_tensors(csr)
+    q, k, v = _qkv(csr, 16, seed=cs)
+    tq, tk, tv = _t(q, k, v)
+    ragged = ka.attention_chunks_plain(rargs[0], 0, *rargs[1:], tq, tk, tv,
+                                       n_rows=csr.n_rows, cs=cs)
+    dense = ka.attention_chunks_plain(None, bell.width, *dargs, tq, tk, tv,
+                                      n_rows=csr.n_rows, cs=cs)
+    assert torch.equal(ragged, dense)
+    j_ragged = jk.fused_ragged_attention(
+        *map(jnp.asarray, (rag.blkptr, rag.slot_rowblk, rag.slot_colblk,
+                           rargs[2].numpy())),
+        *(jnp.asarray(_pad(x, n)) for x, n in ((q, bell.padded_rows),
+                                                (k, bell.n_col_blocks * 8),
+                                                (v, bell.n_col_blocks * 8))),
+        interpret=True)
+    _close(ragged, np.asarray(j_ragged)[: csr.n_rows])
+    assert not ragged[torch.from_numpy(csr.degrees == 0)].any()
+
+
+def test_inf_and_nan_in_v_rows_paired_only_with_masked_cells_give_nan():
+    """v holding +inf, -inf and NaN in rows that no edge reads but that
+    share column blocks with rows edges do read (column j moved to 2j):
+    the Pallas kernel in interpret mode and the plain version multiply
+    whole tiles and agree on NaN (0 * inf in p.v); the CSR oracle stays
+    finite. The CUDA kernels never read those rows and give the oracle's
+    value (tests/test_torch_cuda.py, chip_smoke.py phase 5a)."""
+    base = _graph("hub_skew")
+    csr = CSR(base.rowptr, base.colind * 2, None, base.n_rows, 2 * base.n_cols)
+    bell, rag, rargs, _ = _layout_tensors(csr)
+    q, k, v = _qkv(csr, 16, seed=9)
+    v[1::2] = np.array([np.inf, -np.inf, np.nan], np.float32)[
+        np.arange(csr.n_cols // 2) % 3, None]
+    plain = ka.fused_ragged_attention(*rargs, *_t(q, k, v), n_rows=csr.n_rows).numpy()
+    j_ragged = np.asarray(jk.fused_ragged_attention(
+        *map(jnp.asarray, (rag.blkptr, rag.slot_rowblk, rag.slot_colblk,
+                           rargs[2].numpy())),
+        *(jnp.asarray(_pad(x, n)) for x, n in ((q, bell.padded_rows),
+                                                (k, bell.n_col_blocks * 8),
+                                                (v, bell.n_col_blocks * 8))),
+        interpret=True))[: csr.n_rows]
+    assert np.isnan(plain).any()
+    np.testing.assert_array_equal(np.isnan(plain), np.isnan(j_ragged))
+    want = jref.csr_attention_ref(jnp.asarray(csr.rowptr), jnp.asarray(csr.colind),
+                                  *map(jnp.asarray, (q, k, v)))
+    assert np.isfinite(np.asarray(want)).all()

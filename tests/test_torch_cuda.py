@@ -176,51 +176,6 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
         )
 
 
-def _attn_graph(kind):
-    """Deduplicated graphs: a skewed one, one hub over 512 slots, and one
-    with empty row blocks and rows without edges in non-empty blocks."""
-    if kind == "hub_skew":
-        return hub_skew(3000, 4, 0.05, 300, seed=2).dedup_edges()
-    if kind == "single_hub":
-        return single_hub(4096, nnz_frac=0.9, seed=1).dedup_edges()
-    rng = np.random.default_rng(5)
-    deg = np.r_[rng.integers(1, 6, 8), np.zeros(24, np.int64), rng.integers(1, 6, 21)]
-    deg[2] = deg[45] = 0
-    colind = rng.integers(0, 70, int(deg.sum())).astype(np.int32)
-    return CSR(np.r_[0, np.cumsum(deg)].astype(np.int32), colind, None, deg.size,
-               70).dedup_edges()
-
-
-@pytest.mark.parametrize("kind", ["hub_skew", "single_hub", "empty_rows"])
-@pytest.mark.parametrize("d", [64, 256, 1000])
-def test_fused_attention_kernels(cuda, kind, d):
-    """Both attention kernels against their plain versions; D = 1000 takes
-    the launch path above 48 KB of dynamic shared memory."""
-    csr = _attn_graph(kind)
-    bell = csr_to_block_ell(csr)
-    rag = bell.to_ragged()
-    g = torch.Generator().manual_seed(d)
-    q = torch.randn(csr.n_rows, d, generator=g).to(cuda)
-    k = torch.randn(csr.n_cols, d, generator=g).to(cuda)
-    v = torch.randn(csr.n_cols, d, generator=g).to(cuda)
-    rargs = [torch.from_numpy(a).to(cuda) for a in
-             (rag.blkptr, rag.slot_colblk, (rag.slot_vals != 0).astype(np.float32))]
-    dargs = [torch.from_numpy(a).to(cuda) for a in
-             (bell.colblk, (bell.vals != 0).astype(np.float32))]
-    before = dict(ka.LAUNCHES)
-    ragged = ka.fused_ragged_attention(*rargs, q, k, v, n_rows=csr.n_rows)
-    dense = ka.fused_csr_attention(*dargs, q, k, v, n_rows=csr.n_rows)
-    torch.cuda.synchronize()
-    assert ka.LAUNCHES["fused_ragged_attention"] == before["fused_ragged_attention"] + 1
-    assert ka.LAUNCHES["fused_csr_attention"] == before["fused_csr_attention"] + 1
-    _close(ragged, ka.fused_ragged_attention_plain(*rargs, q, k, v, n_rows=csr.n_rows))
-    _close(dense, ka.fused_csr_attention_plain(*dargs, q, k, v, n_rows=csr.n_rows))
-    assert torch.equal(dense, ragged)
-    assert torch.equal(ragged, ka.fused_ragged_attention(*rargs, q, k, v, n_rows=csr.n_rows))
-    empty = torch.from_numpy(csr.degrees == 0).to(cuda)
-    assert not ragged[empty].any()
-
-
 def _cliques(n_cliques, size):
     """Block-diagonal cliques of ``size`` nodes: at size 16 every 8x8 and
     16x8 tile of the diagonal has all its cells live."""
@@ -229,6 +184,127 @@ def _cliques(n_cliques, size):
     cols = rows // size * size + np.tile(np.arange(size), n)
     return CSR((np.arange(n + 1) * size).astype(np.int32), cols.astype(np.int32),
                np.ones(n * size, np.float32), n, n)
+
+
+def _attn_graph(kind):
+    """Deduplicated graphs: a skewed one, one hub over 512 slots, one with
+    empty row blocks and rows without edges in non-empty blocks, and
+    block-diagonal cliques (fully live tiles)."""
+    if kind == "hub_skew":
+        return hub_skew(3000, 4, 0.05, 300, seed=2).dedup_edges()
+    if kind == "single_hub":
+        return single_hub(4096, nnz_frac=0.9, seed=1).dedup_edges()
+    if kind == "cliques":
+        return _cliques(25, 16).structural()
+    rng = np.random.default_rng(5)
+    deg = np.r_[rng.integers(1, 6, 8), np.zeros(24, np.int64), rng.integers(1, 6, 21)]
+    deg[2] = deg[45] = 0
+    colind = rng.integers(0, 70, int(deg.sum())).astype(np.int32)
+    return CSR(np.r_[0, np.cumsum(deg)].astype(np.int32), colind, None, deg.size,
+               70).dedup_edges()
+
+
+def _attn_args(csr, device):
+    bell = csr_to_block_ell(csr)
+    rag = bell.to_ragged()
+    rargs = [torch.from_numpy(a).to(device) for a in
+             (rag.blkptr, rag.slot_colblk, (rag.slot_vals != 0).astype(np.float32))]
+    dargs = [torch.from_numpy(a).to(device) for a in
+             (bell.colblk, (bell.vals != 0).astype(np.float32))]
+    return rargs, dargs
+
+
+def _check_attention(csr, q, k, v, device, want=None, cs=None):
+    """Both attention kernels once each (counted), in chunks of ``cs``
+    slots (default: the wrappers'), against their plain versions (or
+    ``want``); dense-W == ragged bit for bit, a second launch bit-equal,
+    rows without edges 0. Returns the ragged output."""
+    rargs, dargs = _attn_args(csr, device)
+    before = dict(ka.LAUNCHES)
+    ragged = ka.fused_ragged_attention(*rargs, q, k, v, n_rows=csr.n_rows, cs=cs)
+    dense = ka.fused_csr_attention(*dargs, q, k, v, n_rows=csr.n_rows, cs=cs)
+    torch.cuda.synchronize()
+    assert ka.LAUNCHES["fused_ragged_attention"] == before["fused_ragged_attention"] + 1
+    assert ka.LAUNCHES["fused_csr_attention"] == before["fused_csr_attention"] + 1
+    _close(ragged, ka.fused_ragged_attention_plain(*rargs, q, k, v, n_rows=csr.n_rows)
+           if want is None else want)
+    _close(dense, ka.fused_csr_attention_plain(*dargs, q, k, v, n_rows=csr.n_rows)
+           if want is None else want)
+    assert torch.equal(dense, ragged)
+    assert torch.equal(ragged, ka.fused_ragged_attention(*rargs, q, k, v, n_rows=csr.n_rows,
+                                                         cs=cs))
+    empty = torch.from_numpy(csr.degrees == 0).to(device)
+    assert not ragged[empty].any()
+    return ragged
+
+
+def _most_chunks(csr, cs):
+    """The most chunks of ``cs`` slots any row block of csr's ragged 8x8
+    layout is split into (1: no row block is split, no combine runs)."""
+    blkptr = torch.from_numpy(csr_to_block_ell(csr).to_ragged().blkptr)
+    return int(torch.diff(ka.ragged_chunk_table(blkptr, cs)[0]).max())
+
+
+@pytest.mark.parametrize("kind", ["hub_skew", "single_hub", "empty_rows", "cliques"])
+@pytest.mark.parametrize("d", [41, 64, 256, 602, 1000])
+@pytest.mark.parametrize("chunk", [32, None, 1 << 30])
+def test_fused_attention_kernels(cuda, kind, d, chunk):
+    """Both attention kernels against their plain versions, with row
+    blocks split into chunks of 32 slots (the single hub's 512 slots into
+    16, every D), in the wrappers' default chunks (chunk_slots(D): 256
+    slots up to D = 256, so the hub splits in 2 there and not at D = 602
+    or 1000) and unsplit; D = 41 and 602 take the scalar column path,
+    D = 1000 the launch path above 48 KB of dynamic shared memory."""
+    csr = _attn_graph(kind)
+    if kind == "single_hub":
+        cs = ka.chunk_slots(d) if chunk is None else chunk
+        assert _most_chunks(csr, cs) == -(-512 // cs)
+    g = torch.Generator().manual_seed(d)
+    q = torch.randn(csr.n_rows, d, generator=g).to(cuda)
+    k = torch.randn(csr.n_cols, d, generator=g).to(cuda)
+    v = torch.randn(csr.n_cols, d, generator=g).to(cuda)
+    _check_attention(csr, q, k, v, cuda, cs=chunk)
+
+
+@pytest.mark.parametrize("kind", ["hub_skew", "single_hub"])
+@pytest.mark.parametrize("chunk", [32, 1 << 30])
+def test_fused_attention_rescales_when_a_later_slot_raises_the_max(cuda, kind, chunk):
+    """Logits rising by ~40 along each row's columns: every later slot
+    raises the row's max, so the online rescale (and, split into chunks
+    of 32 slots, the combine's) carries the result."""
+    csr = _attn_graph(kind)
+    assert (_most_chunks(csr, chunk) > 1) == (chunk == 32)
+    d = 64
+    g = torch.Generator().manual_seed(3)
+    u = torch.ones(d) / d ** 0.5
+    ramp = torch.arange(csr.n_cols, dtype=torch.float32) / csr.n_cols
+    q = 0.1 * torch.randn(csr.n_rows, d, generator=g) + u
+    k = 0.1 * torch.randn(csr.n_cols, d, generator=g) + (40.0 * d ** 0.5) * ramp[:, None] * u
+    v = torch.randn(csr.n_cols, d, generator=g)
+    _check_attention(csr, q.to(cuda), k.to(cuda), v.to(cuda), cuda, cs=chunk)
+
+
+@pytest.mark.parametrize("d", [41, 256])
+def test_fused_attention_inf_and_nan_in_v_rows_only_masked_cells_pair_with(cuda, d):
+    """v holding +inf, -inf and NaN in rows no edge reads (every odd
+    column): the kernels never read them and match the CSR oracle; the
+    plain versions, like the Pallas kernels, give NaN there."""
+    from repro_torch.kernels import ref
+
+    csr = _spread(_attn_graph("hub_skew"))
+    g = torch.Generator().manual_seed(d)
+    q = torch.randn(csr.n_rows, d, generator=g).to(cuda)
+    k = torch.randn(csr.n_cols, d, generator=g).to(cuda)
+    v = torch.randn(csr.n_cols, d, generator=g)
+    v[1::6], v[3::6], v[5::6] = float("inf"), float("-inf"), float("nan")
+    v = v.to(cuda)
+    rp, ci = (torch.from_numpy(a).to(cuda) for a in (csr.rowptr, csr.colind))
+    want = ref.csr_attention_ref(rp, ci, q, k, v)
+    assert torch.isfinite(want).all()
+    _check_attention(csr, q, k, v, cuda, want=want)
+    rargs, _ = _attn_args(csr, cuda)
+    assert torch.isnan(ka.fused_ragged_attention_plain(*rargs, q, k, v,
+                                                       n_rows=csr.n_rows)).any()
 
 
 def _sddmm_graph(kind):

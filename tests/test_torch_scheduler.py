@@ -166,6 +166,63 @@ def test_h100_charges_sddmm_families_by_their_own_step():
             assert est.estimate(feat, other, v.name, v.knobs) == base, (op, v.full_name())
 
 
+def test_h100_charges_fused_attention_families_by_their_own_step():
+    """The CPU profiles charge the fused attention families ``step_s``, as
+    the JAX package does. The h100 profile charges them ``attn_step_s``
+    (fitted on the redesigned ragged attention kernel): moving it moves
+    the fused families' estimates and no composed pipe's, and moving
+    ``step_s`` or ``sddmm_step_s`` leaves the fused families' alone."""
+    for hw in (HardwareSpec.cpu(), HardwareSpec.cpu_wide()):
+        assert hw.attn_step_s == hw.step_s
+    h100 = HardwareSpec.h100()
+    assert h100.attn_step_s != h100.step_s
+    feat = InputFeatures.from_csr(_attn_graph("hub_skew"), 256, "attention")
+    pool = registry.candidates(feat, h100, CPU, include_kernels=True)
+    fused = {"fused_attention_cuda", "ragged_attention_cuda"}
+    assert {v.name for v in pool} >= fused | {"pipe"}
+    for v in pool:
+        base = est.estimate(feat, h100, v.name, v.knobs)
+        more = dataclasses.replace(h100, attn_step_s=2 * h100.attn_step_s)
+        if v.name in fused:
+            assert est.estimate(feat, more, v.name, v.knobs) > base, v.full_name()
+        else:
+            assert est.estimate(feat, more, v.name, v.knobs) == base, v.full_name()
+        for kept in ("step_s", "sddmm_step_s"):
+            other = dataclasses.replace(h100, **{kept: 2 * getattr(h100, kept)})
+            if v.name in fused:
+                assert est.estimate(feat, other, v.name, v.knobs) == base, (kept, v.name)
+
+
+def test_h100_fused_attention_estimate_counts_live_cell_gathers():
+    """The h100 profile models the CUDA attention kernels: one k and one v
+    row gathered and one logit computed per live cell, where the CPU
+    profiles keep the JAX package's whole-tile gathers per stored slot.
+    The composed pipes' estimates do not depend on it."""
+    for hw in (HardwareSpec.cpu(), HardwareSpec.cpu_wide()):
+        assert not hw.attn_live_gathers
+    h100 = HardwareSpec.h100()
+    assert h100.attn_live_gathers
+    whole_tile = dataclasses.replace(h100, attn_live_gathers=False)
+    csr = _attn_graph("hub_skew")
+    f = 256
+    feat = InputFeatures.from_csr(csr, f, "attention")
+    pool = registry.candidates(feat, h100, CPU, include_kernels=True)
+    fused = {"fused_attention_cuda", "ragged_attention_cuda"}
+    assert {v.name for v in pool} >= fused
+    no_step = dataclasses.replace(h100, attn_step_s=0.0)
+    for v in pool:
+        base = est.estimate(feat, h100, v.name, v.knobs)
+        if v.name not in fused:
+            assert est.estimate(feat, whole_tile, v.name, v.knobs) == base, v.full_name()
+            continue
+        assert base < est.estimate(feat, whole_tile, v.name, v.knobs), v.name
+        eff = est._block_ell_elems(feat, v.knobs, v.name == "ragged_attention_cuda", v.name)
+        bytes_moved = (2 * csr.n_rows + 2 * csr.n_cols) * f * 4 + eff * 4 + csr.nnz * 2 * f * 4
+        flops = 4.0 * csr.nnz * f + 8.0 * csr.nnz
+        assert est.estimate(feat, no_step, v.name, v.knobs) == pytest.approx(
+            max(bytes_moved / h100.hbm_bw, flops / h100.peak_flops), rel=1e-12), v.name
+
+
 def test_device_rule():
     if torch.cuda.is_available():
         pytest.skip("the rule under test is the one for machines without a card")
