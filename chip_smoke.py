@@ -149,16 +149,56 @@ order; any failure raises and the script exits non-zero:
    seed=0) at F = 256 with every scheduled aggregation timed by CUDA
    events and fed to observe (re-probes <= flags; no probe starts once
    the budget is spent).
+12. Fleet and cross-device, at full width (F = D = 256):
+   a. Fault injection through the resilience chain: ragged_ell_cuda
+      pinned for spmm on the Reddit-0.25 normalized graph, then
+      AUTOSAGE_FAULT run faults on it (retries 0, AUTOSAGE_BREAKER_N 3):
+      each faulted call serves the baseline, autosage_faults_total and
+      autosage_fallback_total rise by exactly the injected count, the
+      kernel does not launch, the output matches the reference; the
+      candidate is quarantined with its quarantine| record in the cache
+      file, a fresh AutoSage leaves it out of its shortlist, a
+      replay-only one raises ReplayMiss on the pin; after a short
+      AUTOSAGE_QUARANTINE_TTL_S the half-open call launches the kernel
+      again and clears the record. Then the first probe of a cold decide
+      hangs (AUTOSAGE_FAULT_HANG_S above AUTOSAGE_PROBE_TIMEOUT_S): the
+      watchdog abandons it and decide returns.
+   b. The legacy "csr_attention" op on the deduplicated Reddit-0.25
+      graph, D = 256: decide gives the baseline, as the JAX package
+      does, and its output matches ref.csr_attention_ref; a legacy-key
+      entry pinned to ragged_attention_cuda replays the fused kernel
+      within the tolerance.
+   c. Decision transfer: the port on the CPU (device='cpu', kernel
+      families included) probes spmm on products_like(0.02) into a
+      cache file; the card decides the same key on that file with the
+      transfer tier on, then on a copy with AUTOSAGE_TRANSFER=0. Tier,
+      probe passes, predicted ms against the card's probe and the cold
+      decide times are printed; outputs match the reference, and a
+      confident transfer runs no probe.
+   d. Fleet: `python -m repro_torch.train_gnn --workers 2 --shared
+      --minibatch 1024` at reddit_like(0.05) on one shared
+      cache, then one worker alone on a fresh cache: both exit 0, the
+      merged file loads in a third process, the fleet opens buckets
+      warm, its probes stay below twice the lone worker's, and no worker
+      falls back.
+   Phases 3 and 6 also time the warm SAGE and GAT forwards through two
+   replay-only AutoSage instances built with AUTOSAGE_RESILIENCE=0 (raw
+   runners) and =1 (the chain), side by side, outside the counted runs.
 
 The main path is every forward of phases 3, 4 and 6, every training
-step of phases 8, 9 and 11 and the ops chain of phase 10, through the
-entry points a user calls: decide (probes included) + two forwards or
-the training steps, the replay run, and each pinned run. The launch counters of every kernel are set to 0 just
-before each of these runs and read just after it; a kernel's
+step of phases 8, 9 and 11, the ops chain of phase 10 and the runner
+calls of phases 12a-c, through the entry points a user calls: decide
+(probes included) + two forwards or the training steps, the replay run,
+and each pinned run. The launch counters of every kernel are set to 0
+just before each of these runs and read just after it; a kernel's
 ``launches`` is the sum over them, and every kernel must have launched.
-The host/device breakdown of a warm forward is timed outside these runs
-and is not counted. Peak device memory is printed per phase. The
-second-to-last line is the kernels JSON, the last line the result JSON.
+Resilience is on (the default) throughout: after each of phases 2-11
+the smoke reads autosage_faults_total and autosage_fallback_total and
+fails unless both are 0, so no kernel of the main path hid behind a
+fallback. The host/device breakdown of a warm forward is timed outside
+these runs and is not counted. Peak device memory is printed per phase.
+The second-to-last line is the kernels JSON, the last line the result
+JSON.
 """
 from __future__ import annotations
 
@@ -263,6 +303,64 @@ def check_equal(name, a, b) -> None:
 
     if not torch.equal(a, b):
         raise AssertionError(f"{name}: not bit-equal, max diff {float((a - b).abs().max())}")
+
+
+# the resilience layer's counters (core/resilience.py, the JAX names):
+# every phase 2-11 must leave both at 0, so no kernel of the main path
+# hid behind a fallback
+FAULT_COUNTERS = ("autosage_faults_total", "autosage_fallback_total")
+
+
+def fault_counts() -> dict:
+    from repro_torch.core import obs
+
+    return {name: obs.REGISTRY.total(name) for name in FAULT_COUNTERS}
+
+
+class env:
+    """Set (value str) or unset (value None) environment variables for
+    the body, restoring the previous values after it."""
+
+    def __init__(self, **kv):
+        self.kv, self.old = kv, {}
+
+    def __enter__(self):
+        for k, v in self.kv.items():
+            self.old[k] = os.environ.get(k)
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def resilience_ab(label, forward_off, forward_on, device, reps=5) -> None:
+    """Warm forwards of one model through two AutoSage instances on the
+    same decisions, built and run with AUTOSAGE_RESILIENCE=0 (raw
+    runners) and =1 (the fallback chain), alternating; prints the
+    medians. Not a counted run."""
+    import torch
+
+    times = {"0": [], "1": []}
+    with torch.no_grad():
+        for i in range(reps + 1):  # the first round builds each runner
+            for flag, fn in (("0", forward_off), ("1", forward_on)):
+                with env(AUTOSAGE_RESILIENCE=flag):
+                    t0 = time.perf_counter()
+                    fn()
+                    sync(device)
+                    if i:
+                        times[flag].append(time.perf_counter() - t0)
+    log(f"warm {label} forward, AUTOSAGE_RESILIENCE=0 vs 1 ({reps} each, alternating): "
+        f"median {statistics.median(times['0']):.4f} s vs "
+        f"{statistics.median(times['1']):.4f} s; all {json.dumps(times)}")
 
 
 def _kernel_modules():
@@ -634,6 +732,10 @@ def model_phase(graph, device, workdir: Path) -> dict:
     check_close("replayed logits", logits_r, logits)
     log(f"replay-only AutoSage: same choices {sorted(set(choices.values()))}; logits "
         f"bit-equal: {bool(torch.equal(logits_r, logits))}")
+    raw = AutoSage(device=device, cache=ScheduleCache(path=str(cache_path), replay_only=True))
+    resilience_ab("SAGE", lambda: model(graph, x, sage=raw), lambda: model(graph, x, sage=replay),
+                  device)
+    del raw
 
     a = norm_csr(graph)
     for family in FAMILIES:
@@ -1050,7 +1152,11 @@ def gat_phase(graph, device, workdir: Path) -> dict:
     check_close("GAT replayed output", out_r, out)
     log(f"replay-only AutoSage: same choice {choice}; output bit-equal: "
         f"{bool(torch.equal(out_r, out))}")
-    del replay, out_r
+    raw = AutoSage(device=device,
+                   cache=ScheduleCache(path=str(cache_path), replay_only=True))
+    resilience_ab("GAT", lambda: model(graph, x, sage=raw), lambda: model(graph, x, sage=replay),
+                  device)
+    del replay, raw, out_r
     _empty_cache(device)
 
     feat = InputFeatures.from_csr(graph.structural(), D_ATTN, "attention")
@@ -2099,15 +2205,341 @@ def minibatch_phase(graph, device, workdir: Path) -> dict:
     return totals
 
 
+# ----------------------------------------------------------- phase 12
+F_FLEET = 256  # configs/gnn_sage width
+FAULT_CALLS = 3  # faulted runner calls of 12a, = AUTOSAGE_BREAKER_N
+QUARANTINE_TTL_S = 8.0
+PROBE_TIMEOUT_S, HANG_S = 5.0, 8.0
+TRANSFER_SCALE = 0.02  # products_like: 48,980 nodes, probed on the CPU
+# the CPU donor probes the hand-kernel families too (their plain versions)
+DONOR_ENV = {"AUTOSAGE_PROBE_PALLAS": "1"}
+FLEET_SCALE = 0.05  # reddit_like nodes for the fleet's trainers
+FLEET_TIMEOUT_S = 400
+
+
+def _faults_since(before: dict) -> dict:
+    return {k: v - before[k] for k, v in fault_counts().items()}
+
+
+def _ref_spmm(csr, b, device):
+    """ref.spmm_ref of ``csr`` times ``b`` on ``device``."""
+    from repro_torch.core import resilience
+
+    return resilience.reference_runner(csr, "spmm", device)(b)
+
+
+def _variant_name(family, feat, hw, device) -> str:
+    from repro_torch.core import registry
+
+    names = [v.full_name() for v in registry.candidates(feat, hw, device)
+             if v.name == family and v.knobs.get("rb", 8) == 8 and v.knobs.get("bc", 8) == 8
+             and v.knobs.get("tile_slots", 8) == 8]
+    if len(names) != 1:
+        raise AssertionError(f"{family}: candidates {names}")
+    return names[0]
+
+
+def fault_phase(graph, device, workdir: Path, totals: dict) -> None:
+    """12a: run faults injected on a pinned ragged_ell_cuda through the
+    fallback chain, the quarantine and its effect, TTL recovery, and a
+    hung probe abandoned by the watchdog."""
+    import threading
+
+    import torch
+
+    from repro_torch.core import (
+        AutoSage,
+        InputFeatures,
+        ReplayMiss,
+        ScheduleCache,
+        device_sig,
+        faultinject,
+        obs,
+        registry,
+    )
+    from repro_torch.models.gnn import norm_csr
+
+    a = norm_csr(graph)
+    b = torch.randn(a.n_cols, F_FLEET, generator=torch.Generator().manual_seed(12)).to(device)
+    want = _ref_spmm(a, b, device)
+    path = workdir / "fault.json"
+    sage = AutoSage(device=device, cache=ScheduleCache(path=str(path)))
+    feat = InputFeatures.from_csr(a, F_FLEET, "spmm")
+    choice = _variant_name("ragged_ell_cuda", feat, sage.hw, device)
+    dsig = device_sig(device)
+    key = ScheduleCache.key(dsig, feat.graph_sig, F_FLEET, "spmm", sage.alpha)
+    sage.cache.put(key, {"choice": choice, "probe_ms": {}, "estimates_ms": {}})
+    kernel = "spmm_ragged_ell"
+    with env(AUTOSAGE_FAULT_RETRIES="0", AUTOSAGE_BREAKER_N=str(FAULT_CALLS),
+             AUTOSAGE_QUARANTINE_TTL_S=str(QUARANTINE_TTL_S)):
+        d = sage.decide(a, F_FLEET, "spmm")
+        if not d.from_cache or d.choice != choice:
+            raise AssertionError(f"12a pin: {d.choice} from_cache={d.from_cache}")
+        runner = sage.build_runner(a, d)
+        out, got = counted("12a pinned call, no fault", lambda: runner(b), totals, device)
+        if got[kernel] != 1:
+            raise AssertionError(f"12a: {kernel} launched {got[kernel]} times")
+        check_close("12a pinned call", out, want)
+        before = fault_counts()
+        with env(AUTOSAGE_FAULT=f"run:ragged_ell_cuda:raise:{FAULT_CALLS}"):
+            faultinject.reset()
+            for i in range(FAULT_CALLS):
+                out, got = counted(f"12a faulted call {i + 1}", lambda: runner(b), totals,
+                                   device)
+                if got[kernel]:
+                    raise AssertionError(f"12a: {kernel} launched during a fault")
+                check_close(f"12a faulted call {i + 1} (baseline)", out, want)
+            fired = faultinject.fired()
+        faultinject.reset()
+        delta = _faults_since(before)
+        log(f"12a: {FAULT_CALLS} injected run faults -> counters {json.dumps(delta)}, "
+            f"injected {json.dumps({f'{s}:{k}': n for (s, k), n in fired.items()})}")
+        if delta != {n: float(FAULT_CALLS) for n in FAULT_COUNTERS}:
+            raise AssertionError(f"12a: fault/fallback counters {delta}, want {FAULT_CALLS}")
+        if not sage.breaker.is_quarantined(choice):
+            raise AssertionError(f"12a: {choice} not quarantined after {FAULT_CALLS} faults")
+        since = sage.breaker.active_quarantine(choice)["since"]
+        qkey = ScheduleCache.quarantine_key(dsig, choice)
+        rec = json.loads(path.read_text()).get(qkey, {}).get("quarantine", {})
+        if rec.get("state") != "active":
+            raise AssertionError(f"12a: no active quarantine record {qkey} in the file")
+        out, got = counted("12a quarantined call", lambda: runner(b), totals, device)
+        if got[kernel]:
+            raise AssertionError(f"12a: quarantined {kernel} launched")
+        check_close("12a quarantined call (baseline)", out, want)
+        fresh = AutoSage(device=device, cache=ScheduleCache(path=str(path)), top_k=1000)
+        fresh.breaker.maybe_sync()
+        _, short = fresh.shortlist(feat, registry.candidates(feat, fresh.hw, device))
+        names = [v.full_name() for v in short]
+        if choice in names or not names:
+            raise AssertionError(f"12a: fresh shortlist {names}")
+        replay = AutoSage(device=device, cache=ScheduleCache(path=str(path), replay_only=True))
+        try:
+            replay.decide(a, F_FLEET, "spmm")
+        except ReplayMiss as exc:
+            log(f"12a: replay-only decide raises ReplayMiss: {exc}")
+        else:
+            raise AssertionError("12a: replay of a quarantined pin did not raise")
+        log(f"12a: {choice} quarantined (record in {path.name}); a fresh AutoSage "
+            f"shortlists {len(names)} candidates without it")
+        time.sleep(max(0.0, since + QUARANTINE_TTL_S + 0.5 - time.time()))
+        out, got = counted("12a half-open call", lambda: runner(b), totals, device)
+        if got[kernel] != 1 or sage.breaker.is_quarantined(choice):
+            raise AssertionError(f"12a: recovery probe launched {got[kernel]}")
+        check_close("12a recovered call", out, want)
+        rec = json.loads(path.read_text())[qkey]["quarantine"]
+        if rec["state"] != "cleared":
+            raise AssertionError(f"12a: quarantine record {rec}")
+        log(f"12a: after the {QUARANTINE_TTL_S:g} s TTL the half-open call ran {kernel} "
+            f"and cleared the record")
+
+    # a hung probe: the first probe of a cold decide (the baseline's)
+    # sleeps past the watchdog, which abandons it; decide still returns
+    before = fault_counts()
+    timeouts0 = obs.REGISTRY.total("autosage_faults_total", site="probe", kind="timeout")
+    cold = AutoSage(device=device, cache=ScheduleCache(path=None))
+    with env(AUTOSAGE_FAULT="probe::hang:1", AUTOSAGE_FAULT_HANG_S=str(HANG_S),
+             AUTOSAGE_PROBE_TIMEOUT_S=str(PROBE_TIMEOUT_S)):
+        faultinject.reset()
+        t0 = time.perf_counter()
+        d = cold.decide(a, F_FLEET, "spmm")
+        dt = time.perf_counter() - t0
+        faultinject.reset()
+    timeouts = (obs.REGISTRY.total("autosage_faults_total", site="probe", kind="timeout")
+                - timeouts0)
+    if timeouts < 1 or "baseline" in d.probe_ms:
+        raise AssertionError(f"12a hang: {timeouts} probe timeouts, probe_ms {d.probe_ms}")
+    for t in threading.enumerate():
+        if t.name.startswith("watchdog-"):
+            t.join(HANG_S + 60)
+    out, got = counted("12a call after the hung probe", lambda: cold.build_runner(a, d)(b),
+                       totals, device)
+    check_close("12a after the hung probe", out, want)
+    log(f"12a hang: baseline probe hung {HANG_S:g} s past the {PROBE_TIMEOUT_S:g} s watchdog; "
+        f"decide returned {d.choice} in {dt:.1f} s (probe_ms {json.dumps(d.probe_ms)}); "
+        f"counters {json.dumps(_faults_since(before))}")
+
+
+def legacy_phase(dedup, device, workdir: Path, totals: dict) -> None:
+    """12b: the legacy per-op "csr_attention" op decides the baseline, and
+    a legacy-key entry pinned to the ragged fused kernel replays it."""
+    from repro_torch.core import AutoSage, InputFeatures, ScheduleCache, device_sig, resilience
+
+    q, k, v = _qkv(dedup, D_ATTN, device, seed=12)
+    want = resilience.reference_runner(dedup, "attention", device)(q, k, v)  # csr_attention_ref
+    before = fault_counts()
+    sage = AutoSage(device=device, cache=ScheduleCache(path=str(workdir / "legacy.json")))
+    d = sage.decide(dedup, D_ATTN, "csr_attention")
+    if d.choice != "baseline" or d.estimates_ms:
+        raise AssertionError(f"12b: legacy decide chose {d.choice} {d.estimates_ms}")
+    out, _ = counted("12b legacy decide's runner", lambda: sage.build_runner(dedup, d)(q, k, v),
+                     totals, device)
+    err = check_close("12b legacy baseline vs csr_attention_ref", out, want)
+    log(f"12b: decide(op='csr_attention') -> {d.choice} ({d.variant.full_name()}), as in the "
+        f"JAX package (its estimate branch costs no attention candidate, so decide's "
+        f"rescue serves it; counters {json.dumps(_faults_since(before))}); max err {err:.3e}")
+    feat = InputFeatures.from_csr(dedup, D_ATTN, "csr_attention")
+    name = _variant_name("ragged_attention_cuda", feat, sage.hw, device)
+    path = workdir / "legacy_pinned.json"
+    ScheduleCache(path=str(path)).put(
+        ScheduleCache.key(device_sig(device), feat.graph_sig, D_ATTN, "csr_attention",
+                          sage.alpha),
+        {"choice": name, "probe_ms": {}, "estimates_ms": {}})
+    replay = AutoSage(device=device, cache=ScheduleCache(path=str(path), replay_only=True))
+    t0 = time.perf_counter()
+    d = replay.decide(dedup, D_ATTN, "csr_attention")
+    out, got = counted("12b pinned legacy replay",
+                       lambda: replay.build_runner(dedup, d)(q, k, v), totals, device)
+    if not d.from_cache or d.choice != name or got["fused_ragged_attention"] != 1:
+        raise AssertionError(f"12b replay: {d.choice}, launches {got}")
+    err = check_close("12b pinned fused kernel vs csr_attention_ref", out, want)
+    log(f"12b: legacy entry pinned to {name} replays the fused kernel "
+        f"({time.perf_counter() - t0:.1f} s incl. prepare), max err {err:.3e}")
+
+
+def transfer_phase(device, workdir: Path, totals: dict) -> None:
+    """12c: a CPU donor (the port itself, device='cpu') probes spmm on
+    products_like(0.02); the card then decides the same key with the
+    transfer tier on and, on a copy of the donor file, with it off."""
+    import shutil
+
+    import torch
+
+    from repro_torch.core import AutoSage, ScheduleCache, obs
+    from repro_torch.models.gnn import norm_csr
+    from repro_torch.sparse import products_like
+
+    g = norm_csr(products_like(TRANSFER_SCALE, seed=0))
+    donor_path, off_path = workdir / "transfer.json", workdir / "transfer_off.json"
+    with env(**DONOR_ENV):
+        donor = AutoSage(device="cpu", cache=ScheduleCache(path=str(donor_path)))
+        t0 = time.perf_counter()
+        dd = donor.decide(g, F_FLEET, "spmm")
+        t_donor = time.perf_counter() - t0
+    log(f"12c donor (CPU, {g.n_rows} nodes, {g.nnz} edges, F = {F_FLEET}): chose {dd.choice} "
+        f"in {t_donor:.1f} s; probe_ms {json.dumps(dd.probe_ms)}")
+    shutil.copy(donor_path, off_path)
+    b = torch.randn(g.n_cols, F_FLEET, generator=torch.Generator().manual_seed(13)).to(device)
+    want = _ref_spmm(g, b, device)
+    results = {}
+    for label, path, flag in (("transfer on", donor_path, "1"), ("transfer off", off_path, "0")):
+        with env(AUTOSAGE_TRANSFER=flag):
+            sage = AutoSage(device=device, cache=ScheduleCache(path=str(path)))
+            passes0 = obs.REGISTRY.total("autosage_probe_passes_total", op="spmm")
+            t0 = time.perf_counter()
+            d = sage.decide(g, F_FLEET, "spmm", allow_transfer=True)
+            t_cold = time.perf_counter() - t0
+            passes = obs.REGISTRY.total("autosage_probe_passes_total", op="spmm") - passes0
+        out, _ = counted(f"12c {label} runner", lambda: sage.build_runner(g, d)(b), totals,
+                         device)
+        err = check_close(f"12c {label} vs reference", out, want)
+        tier = "transfer" if d.transfer and not d.probe_ms else "probe"
+        verdict = f" ({d.transfer['verdict']})" if d.transfer else ""
+        results[label] = (d, t_cold)
+        log(f"12c {label}: tier {tier}{verdict}, choice {d.choice}, {int(passes)} probe "
+            f"passes timing {len(d.probe_ms)} candidates, cold decide {t_cold:.3f} s, "
+            f"max err {err:.3e}")
+        if tier == "transfer" and passes:
+            raise AssertionError(f"12c: a confident transfer ran {passes} probes")
+    d_on, d_off = results["transfer on"][0], results["transfer off"][0]
+    if d_on.transfer is None or d_off.transfer is not None:
+        raise AssertionError(f"12c: transfer provenance on={d_on.transfer} off={d_off.transfer}")
+    pred = d_on.transfer["predicted_ms"]
+    probe = d_on.probe_ms or d_off.probe_ms
+    log("12c predicted ms (CPU ranking re-ranked for the card) vs the card's probe ms: "
+        + json.dumps({n: [pred[n], probe.get(n)] for n in pred}))
+    log(f"12c cold decide: transfer on {results['transfer on'][1]:.3f} s, off "
+        f"{results['transfer off'][1]:.3f} s; rank agreement "
+        f"{d_on.transfer['rank_agreement']}, donor choice {d_on.transfer['peer_choice']}")
+
+
+def _run_cmd(cmd, timeout_s):
+    """Run ``cmd`` in a session of its own; on timeout kill the whole
+    group (the fleet's workers too). Returns (rc, stdout, stderr)."""
+    import signal
+
+    envv = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(SRC), os.environ.get("PYTHONPATH")) if p)}
+    proc = subprocess.Popen(cmd, env=envv, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise AssertionError(f"{cmd} timed out after {timeout_s} s: {err[-2000:]}")
+    return proc.returncode, out, err
+
+
+def fleet_phase(device, workdir: Path) -> None:
+    """12d: two minibatch trainers (train_gnn fleet mode) share one cache;
+    one trainer alone on a fresh cache; a third process loads the merged
+    file."""
+    base = [sys.executable, "-m", "repro_torch.train_gnn", "--minibatch", str(MINIBATCH),
+            "--epochs", "1", "--scale", str(FLEET_SCALE), "--device", device.type]
+    runs = {}
+    for label, extra in (("fleet", ["--workers", "2", "--shared"]),
+                         ("lone", ["--workers", "1"])):
+        t0 = time.perf_counter()
+        rc, out, err = _run_cmd(base + extra + ["--cache", str(workdir / f"{label}.json")],
+                                FLEET_TIMEOUT_S)
+        if rc != 0:
+            raise AssertionError(f"12d {label}: exit {rc}\n{out[-3000:]}\n{err[-3000:]}")
+        runs[label] = json.loads([ln for ln in out.splitlines() if ln.startswith("{")][-1])[
+            "workers"]
+        keys = ("decides", "buckets", "probes_run", "warm_cache_opens", "probe_spent_ms",
+                *FAULT_COUNTERS)
+        log(f"12d {label}: {time.perf_counter() - t0:.1f} s; " + "; ".join(
+            f"worker {i}: " + json.dumps({k: w[k] for k in keys})
+            for i, w in enumerate(runs[label])))
+    rc, out, err = _run_cmd(
+        [sys.executable, "-c", "import sys; from repro_torch.core import ScheduleCache; "
+         "print(len(ScheduleCache(path=sys.argv[1], replay_only=True)))",
+         str(workdir / "fleet.json")], 120)
+    if rc != 0 or int(out.strip() or 0) < 1:
+        raise AssertionError(f"12d: merged cache does not load: {rc} {out} {err[-2000:]}")
+    fleet, lone = runs["fleet"], runs["lone"][0]
+    warm = sum(w["warm_cache_opens"] for w in fleet)
+    probes = sum(w["probes_run"] for w in fleet)
+    log(f"12d: merged cache loads in a third process ({out.strip()} entries); fleet warm "
+        f"opens {warm}, fleet probes {probes} vs lone {lone['probes_run']}")
+    if warm < 1 or probes >= 2 * lone["probes_run"]:
+        raise AssertionError(f"12d: warm opens {warm}, probes {probes} vs lone "
+                             f"{lone['probes_run']}")
+    faulted = [w for w in fleet + [lone] if any(w[n] for n in FAULT_COUNTERS)]
+    if faulted:
+        raise AssertionError(f"12d: a worker faulted or fell back: {faulted}")
+
+
+def fleet_cross_device_phase(graph, dedup, device, workdir: Path) -> dict:
+    """Phase 12. Returns the launch counts summed over its counted runs."""
+    from repro_torch.core import registry
+
+    totals: dict = {}
+    for label, fn, args in (("12a (fault injection)", fault_phase, (graph,)),
+                            ("12b (legacy csr_attention)", legacy_phase, (dedup,)),
+                            ("12c (decision transfer)", transfer_phase, ())):
+        t0 = time.perf_counter()
+        fn(*args, device, workdir, totals)
+        log(f"== phase {label}: {time.perf_counter() - t0:.1f} s")
+        registry.clear_layout_memo()
+        _empty_cache(device)
+    t0 = time.perf_counter()
+    fleet_phase(device, workdir)
+    log(f"== phase 12d (fleet): {time.perf_counter() - t0:.1f} s")
+    log(f"phase 12 launches (sum of the counted runs): {json.dumps(totals)}")
+    return totals
+
+
 def run(device, scale: float = SCALE, reps: int = 5) -> list:
-    """Phases 2-11 on ``device``; returns the kernels records."""
+    """Phases 2-12 on ``device``; returns the kernels records."""
     from repro_torch.core import registry
     from repro_torch.models.gnn import norm_csr
     from repro_torch.sparse import reddit_like
 
     t_run = time.perf_counter()
 
-    def phase(label, fn, *args):
+    def phase(label, fn, *args, faults_ok=False):
         _peak_reset(device)
         t0 = time.perf_counter()
         out = fn(*args)
@@ -2115,6 +2547,10 @@ def run(device, scale: float = SCALE, reps: int = 5) -> list:
             f"{time.perf_counter() - t_run:.1f} s)")
         _peak(label, device)
         registry.clear_layout_memo()
+        counts = fault_counts()
+        log(f"{label}: {json.dumps(counts)}")
+        if any(counts.values()) and not faults_ok:
+            raise AssertionError(f"{label}: a fault or fallback on the main path: {counts}")
         return out
 
     def add(counts, more):
@@ -2156,6 +2592,8 @@ def run(device, scale: float = SCALE, reps: int = 5) -> list:
         add(counts, more)
         add(counts, phase("phase 11 (minibatch SAGE training)", minibatch_phase, graph, device,
                           work))
+        add(counts, phase("phase 12 (fleet and cross-device)", fleet_cross_device_phase, graph,
+                          dedup, device, work, faults_ok=True))
     log(f"main-path launches (sum of the counted runs): {json.dumps(counts)}")
     missing = [name for name in records if counts.get(name, 0) == 0]
     if missing:

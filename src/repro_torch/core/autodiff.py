@@ -16,10 +16,13 @@ choice), so after the first step a training loop converts nothing. The
 index arrays the backward needs on the device (rowptr, colind and the
 transpose's edge permutation) are uploaded once per graph and device.
 
-There is no fallback here: the JAX package's `_scheduled` serves the
-reference oracle when a non-AutoSage scheduler fails (core/resilience.py,
-not ported); the port lets the fault raise, so a failing kernel cannot
-hide behind an oracle.
+Defense in depth, as in the JAX package: when the scheduler's decide or
+build_runner raises (a duck-typed scheduler without a fallback chain of
+its own; `AutoSage` rescues its decides itself), `_scheduled` serves the
+reference oracle (core/resilience.py) and counts the fault and the
+fallback. `ReplayMiss` still raises, and so does every fault that
+`resilience.must_raise` (a sticky CUDA error; on a card, any fault that
+was not injected); AUTOSAGE_RESILIENCE=0 lets every fault raise.
 
 The entry point for users is the `repro_torch.api` facade; models/gnn.py
 routes through it.
@@ -48,8 +51,25 @@ def _scheduled(sched, csr: CSR, f: int, op: str, *args):
     """decide + (memoized) prepare + run one scheduled op."""
     kind = "bwd" if "_bwd" in op else "fwd"
     with obs.span(f"{kind}.{op}", op=op):
-        d = _decide(sched, csr, int(f), op)
-        runner = sched.build_runner(csr, d)
+        try:
+            d = _decide(sched, csr, int(f), op)
+            runner = sched.build_runner(csr, d)
+        except Exception as exc:
+            # a step's op must not die on a scheduling fault: the
+            # reference oracle is always runnable. ReplayMiss stays loud —
+            # the replay contract forbids silent substitution
+            from repro_torch.core import resilience
+            from repro_torch.core.cache import ReplayMiss
+
+            device = args[-1].device
+            if (isinstance(exc, ReplayMiss) or not resilience.enabled()
+                    or resilience.must_raise(exc, device)):
+                raise
+            resilience.record_fault("decide", "", op, exc, device)
+            resilience.record_fallback("scheduler", "reference", op, device)
+            runner = resilience.reference_runner(csr, op, device)
+            with obs.span("run", op=op, choice="reference"):
+                return runner(*args)
         with obs.span("run", op=op, choice=d.choice):
             return runner(*args)
 

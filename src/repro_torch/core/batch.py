@@ -26,18 +26,26 @@ feature regimes:
      calibrated reference by AUTOSAGE_DRIFT_RATIO, or when the incoming
      graphs' padding_waste moves AUTOSAGE_DRIFT_WASTE_DELTA away from
      the probe representative's. The re-probe runs on the newest graph
-     seen in the bucket.
+     seen in the bucket;
+  5. fleet and cross-device: on a shared cache a new bucket first folds
+     in peers' flushes (`ScheduleCache.maybe_reload`), and a bucket no
+     entry pins opens from a peer device class's probed ranking when
+     one exists (the transfer tier, core/transfer.py): a confident
+     transfer is final with zero probes, any other serves its choice
+     while one budgeted confirm probe waits;
+  6. resilience (core/resilience.py): a quarantined pinned choice is
+     re-probed (or raises `ReplayMiss` in replay mode), and a pinned
+     choice that faulted at run time re-opens its bucket
+     (`_check_fault_retire`), so no bucket serves a fallback forever
+     under its pinned name.
 
 Entry points mirror `AutoSage` (`decide`, `build_runner`, `spmm`,
 `sddmm`, `attention`), so model code written against `AutoSage`
 (models/gnn.py, core/autodiff.py) takes a `BatchScheduler` unchanged.
-
-Left out, as the port's `AutoSage` leaves them out (ROADMAP.md Queue 1
-item 8): the cross-device transfer tier, the resilience quarantine and
-fault-retire branches, shared-cache reloads and the serving tier's
-upgrade callback. A failing kernel or probe raises; a cached choice
-this process cannot construct raises in replay mode and is re-probed
-otherwise.
+The serving tier's upgrade callback (`on_upgrade`) is not ported yet. A
+cached choice this process cannot construct raises `ReplayMiss` in
+replay mode (the JAX package serves the baseline under its name) and is
+re-probed otherwise.
 """
 from __future__ import annotations
 
@@ -51,9 +59,9 @@ import zlib
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Union
 
-from repro_torch.core import obs, registry, telemetry
+from repro_torch.core import obs, registry, resilience, telemetry
 from repro_torch.core import transfer as transfer_mod
-from repro_torch.core.cache import ReplayMiss, ScheduleCache
+from repro_torch.core.cache import ScheduleCache
 from repro_torch.core.features import (
     InputFeatures,
     ScheduleBucket,
@@ -120,6 +128,11 @@ class _BucketState:
     # newest graph seen: the re-probe representative after a drift flag
     last_csr: Optional[CSR] = None
     last_feat: Optional[InputFeatures] = None
+    # cross-device transfer state (core/transfer.py)
+    transferred: bool = False  # opened from a peer device's probed ranking
+    transfer_verdict: str = ""  # "confirmed" | "pending" | "flipped"
+    transfer_choice: Optional[str] = None  # the re-ranked winner served
+    transfer_info: Optional[Dict[str, Any]] = None  # provenance record
 
     def current(self) -> Decision:
         return self.decision if self.decision is not None else self.provisional
@@ -185,6 +198,11 @@ class BatchScheduler:
         self._drift_flags = obs.ScopedCounter("autosage_drift_events_total")
         self._drift_reprobes = obs.ScopedCounter("autosage_drift_events_total")
         self._drift_flips = obs.ScopedCounter("autosage_drift_events_total")
+        # cross-device transfer accounting (core/transfer.py)
+        self._transfers = obs.ScopedCounter("autosage_transfers_total")
+        self._transfers_confirmed = obs.ScopedCounter("autosage_transfer_verdict_total")
+        self._transfers_flipped = obs.ScopedCounter("autosage_transfer_verdict_total")
+        self._transfer_probe_free = obs.ScopedCounter("autosage_transfer_probe_free_total")
 
     # per-decide views, local to the deciding thread
     @property
@@ -196,7 +214,8 @@ class BatchScheduler:
     @property
     def last_source(self) -> Optional[str]:
         """Tier the calling thread's last decide served from:
-        "bucket-cache" | "probe" | "drift-pending" | "provisional"."""
+        "bucket-cache" | "transfer" | "transfer-pending" | "probe" |
+        "drift-pending" | "provisional"."""
         return getattr(self._decide_tls, "source", None)
 
     def _emit(self, event: Dict[str, Any]) -> None:
@@ -217,6 +236,13 @@ class BatchScheduler:
             with self._lock:
                 st = self._buckets.get(key)
                 if st is None:
+                    if (self.cache.shared and not self.cache.replay_only
+                            and not self.cache.contains(key)):
+                        # a fleet peer may have probed this bucket since
+                        # the load: one mtime stat before paying a probe.
+                        # Never in replay mode: replay serves the file as
+                        # loaded
+                        self.cache.maybe_reload()
                     st = self._open_bucket(bucket, key, csr, feat)
                     self._buckets[key] = st
                     self._by_bucket[bucket] = st
@@ -224,6 +250,7 @@ class BatchScheduler:
                 st.last_csr, st.last_feat = csr, feat
                 self._decide_tls.bucket = bucket
                 self._check_waste_drift(st, feat)
+                self._check_fault_retire(st)
             # probing runs outside the state lock
             if self.auto_pump and not self.cache.replay_only:
                 self.pump(self.max_probes_per_decide)
@@ -231,8 +258,16 @@ class BatchScheduler:
                 d = st.current()
                 if st.probed and st.decision is not None and st.decision.from_cache:
                     source = "bucket-cache"
+                elif (st.probed and st.decision is not None
+                      and st.decision.transfer is not None and not st.decision.probe_ms):
+                    # confident cross-device transfer: final, no local probe
+                    source = "transfer"
                 elif st.probed:
                     source = "probe"
+                elif st.transferred and st.transfer_verdict == "pending":
+                    # transferred choice serving while its confirm probe
+                    # waits on the budget
+                    source = "transfer-pending"
                 elif st.decision is not None:
                     # flagged bucket awaiting its re-probe: the last pinned
                     # decision keeps serving
@@ -256,18 +291,21 @@ class BatchScheduler:
         by_name["baseline"] = base
 
         # replay / warm start: a pinned bucket decision ends the story; in
-        # replay-only mode a miss raises ReplayMiss
-        cached = self.cache.get(key)
-        if cached is not None and cached["choice"] not in by_name and self.cache.replay_only:
-            raise ReplayMiss(
-                f"pinned choice {cached['choice']!r} for {key} is not a candidate here"
-            )
-        # outside replay, two cached shapes are not adopted as final: a
-        # never-probed provisional baseline ("probed": False, pinned by a
-        # finalize without budget) and a choice this process cannot build;
-        # both are probed afresh
-        cached_unusable = cached is not None and not self.cache.replay_only and (
-            cached.get("probed") is False or cached["choice"] not in by_name
+        # replay-only mode a miss raises ReplayMiss, and so does a pinned
+        # choice that is quarantined or that this process cannot build
+        # (never a silent substitute); outside replay both are re-probed
+        cached = self.sage.usable_pin(key, self.cache.get(key), by_name)
+        # outside replay a never-probed provisional baseline ("probed":
+        # False, pinned by a finalize without budget) is not final either,
+        # unless it is a transfer the policy accepted ("confirmed", zero
+        # probes by design); a transfer still "pending" re-opens pending
+        transfer_confirmed = (
+            isinstance(cached, dict)
+            and (cached.get("transfer") or {}).get("verdict") == "confirmed"
+        )
+        cached_unusable = (
+            cached is not None and not self.cache.replay_only
+            and cached.get("probed") is False and not transfer_confirmed
         )
         if cached is not None and not cached_unusable:
             choice = cached["choice"]
@@ -309,6 +347,51 @@ class BatchScheduler:
             # no applicable challengers: the baseline is final, never probe
             st.probed = True
             st.decision = provisional
+            return st
+
+        # transfer tier, between warm hit and cold probe: no local entry,
+        # but a peer device class may have probed this regime
+        if transfer_mod.enabled() and not self.cache.replay_only:
+            plan = transfer_mod.best_plan(
+                self.cache.peer_entries(key), feat, hw, by_name, base, self.sage.alpha,
+                excluded=self.sage.breaker.excluded_names(),
+            )
+            if plan is not None:
+                verdict = "confirmed" if plan.confident else "pending"
+                d = Decision(
+                    op=feat.op, choice=plan.choice, variant=by_name[plan.choice],
+                    guardrail=plan.guardrail, from_cache=False, probe_ms={},
+                    probe_overhead_ms=0.0, probe_iter_ms=0.0, estimates_ms=estimates,
+                    transfer=plan.provenance(verdict),
+                )
+                st.decision = d
+                st.transferred = True
+                st.transfer_verdict = verdict
+                st.transfer_choice = plan.choice
+                st.transfer_info = d.transfer
+                # the padding regime the transfer was accepted under: the
+                # waste-drift detector fires off it as off a probe's
+                st.waste_at_probe = feat.padding_waste
+                self._transfers.inc(op=feat.op)
+                if plan.confident:
+                    st.probed = True  # final: the confirm probe is waived
+                    self._transfers_confirmed.inc(verdict="confirmed")
+                    self._transfer_probe_free.inc(op=feat.op)
+                else:
+                    obs.REGISTRY.inc("autosage_transfer_verdict_total", verdict="pending")
+                self._emit({
+                    "event": "transfer",
+                    "bucket": bucket.sig(),
+                    "op": feat.op,
+                    "f": feat.f,
+                    "choice": plan.choice,
+                    "source_device": plan.source_device,
+                    "verdict": verdict,
+                    "rank_agreement": plan.rank_agreement,
+                    "confident": plan.confident,
+                    "peer_choice": plan.peer_choice,
+                })
+                telemetry.emit_decide_event(d, device, feat, kind="transfer")
         return st
 
     # ----------------------------------------------------------- probes
@@ -364,18 +447,38 @@ class BatchScheduler:
             # re-probe already measures under a fresh probe seed
             st.reprobes += 1
             self._drift_reprobes.inc(event="reprobe")
+        was_pending_transfer = st.transferred and st.transfer_verdict == "pending"
         seed = self._bucket_seed(st) + st.reprobes
         reprobe_span = (
             obs.span("drift.reprobe", bucket=st.bucket.sig(), op=st.rep_feat.op,
                      reason=st.drift_reason)
             if was_drift else contextlib.nullcontext()
         )
+        # a faulted flush (lock contention, injected chaos) must not lose
+        # the probed decision: the write failure is counted, the entry
+        # stays dirty for the next flush, and the bucket serves d
+        flush_guard = (resilience.cache_guard(op=st.rep_feat.op)
+                       if resilience.enabled() else contextlib.nullcontext())
         # one deferred write for the exact-key and bucket puts
-        with reprobe_span, self.cache:
+        with reprobe_span, flush_guard, self.cache:
+            # allow_transfer=False: this IS the measurement that confirms
+            # (or flips) a transferred choice and re-pins drifted buckets
             if st.rep_feat.op == "attention":
-                d = self.sage.decide_attention(st.rep_csr, st.rep_feat.f, seed=seed)
+                d = self.sage.decide_attention(st.rep_csr, st.rep_feat.f, seed=seed,
+                                               allow_transfer=False)
             else:
-                d = self.sage.decide(st.rep_csr, st.rep_feat.f, st.rep_feat.op, seed=seed)
+                d = self.sage.decide(st.rep_csr, st.rep_feat.f, st.rep_feat.op, seed=seed,
+                                     allow_transfer=False)
+            if was_pending_transfer:
+                st.transfer_verdict = (
+                    "confirmed" if d.choice == st.transfer_choice else "flipped")
+                if st.transfer_verdict == "confirmed":
+                    self._transfers_confirmed.inc(verdict="confirmed")
+                else:
+                    self._transfers_flipped.inc(verdict="flipped")
+                if st.transfer_info is not None:
+                    st.transfer_info = dict(st.transfer_info, verdict=st.transfer_verdict)
+                    d.transfer = st.transfer_info
             with self._lock:
                 st.decision = d
                 st.probe_est_ms = d.probe_ms.get(d.choice)
@@ -389,6 +492,11 @@ class BatchScheduler:
                 # the decision commits before probed flips, so a decide
                 # that sees probed=True also sees the upgraded decision
                 st.probed = True
+            if resilience.enabled() and d.choice != "baseline":
+                # the re-probe answered the fault signal: clear the
+                # breaker's counts for the re-pinned choice, so
+                # _check_fault_retire does not re-flag off a stale count
+                self.sage.breaker.record_success(d.choice)
             self.cache.put(st.key, self._bucket_entry(st, d))
             self._push_stats(st)
         with self._lock:
@@ -408,6 +516,10 @@ class BatchScheduler:
             "budget_spent_ms": self.probe_spent_ms,
             "budget_ms": self.probe_budget_ms,
         }
+        if was_pending_transfer:
+            event.update(transfer_verdict=st.transfer_verdict,
+                         transfer_choice=st.transfer_choice,
+                         source_device=(st.transfer_info or {}).get("source_device"))
         if was_drift:
             event.update(old_choice=old_choice, flipped=flipped, reason=st.drift_reason,
                          reprobes=st.reprobes)
@@ -509,6 +621,53 @@ class BatchScheduler:
             "probe_est_ms": st.probe_est_ms,
         })
 
+    def _check_fault_retire(self, st: _BucketState) -> None:
+        """Route run-time faults back into the bucket stream. A pinned or
+        transferred choice that builds but faults at run time emits no
+        drift signal — the fallback chain would serve the baseline under
+        the pinned name forever. The breaker records those run faults;
+        this check re-opens the bucket so the next pump re-probes it
+        (with allow_transfer=False, so a faulting peer import is not
+        re-imported)."""
+        if not resilience.enabled() or st.drift_flagged or not st.probed:
+            return
+        d = st.decision
+        if d is None or d.choice == "baseline":
+            return
+        br = self.sage.breaker
+        if br.is_quarantined(d.choice):
+            self._flag_fault(st, f"pinned choice {d.choice} is quarantined")
+        elif br.run_failures(d.choice) > 0:
+            self._flag_fault(st, f"pinned choice {d.choice} faulted at run time")
+
+    def _flag_fault(self, st: _BucketState, reason: str) -> None:
+        """Like _flag_drift, triggered by breaker state: the pinned
+        decision keeps serving (its chain guarantees a runnable result)
+        while the re-probe waits on the budget."""
+        if self.cache.replay_only:
+            return  # replay is immutable
+        st.drift_flagged = True
+        st.probed = False
+        st.drift_reason = reason
+        obs.REGISTRY.inc("autosage_quarantine_total", event="bucket_reopen")
+        choice = st.decision.choice if st.decision else "baseline"
+        self._emit({
+            "event": "fault_flag",
+            "bucket": st.bucket.sig(),
+            "op": st.bucket.op,
+            "f": st.bucket.f,
+            "choice": choice,
+            "reason": reason,
+            "transferred": st.transferred,
+        })
+        telemetry.emit_fault_event({
+            "event": "bucket_reopen",
+            "bucket": st.bucket.sig(),
+            "op": st.bucket.op,
+            "choice": choice,
+            "reason": reason,
+        }, self.sage.device)
+
     def _push_stats(self, st: _BucketState) -> None:
         """Fold the bucket's traffic and observations into its entry."""
         self.cache.add_hits(st.key, st.hits - st.hits_flushed)
@@ -523,9 +682,12 @@ class BatchScheduler:
         return (self.seed * 2654435761 + zlib.crc32(st.key.encode())) % (2**31)
 
     def _bucket_entry(self, st: _BucketState, d: Decision) -> Dict[str, Any]:
-        """The bucket's cache entry, laid out as the JAX package writes it."""
+        """The bucket's cache entry, laid out as the JAX package writes it.
+        A zero-probe transfer stays ``probed`` False and ``probed_at`` 0.0
+        (its "transfer" dict tells it from a provisional baseline), so it
+        donates nothing and loses every merge against a measured entry."""
         measured = bool(d.probe_ms) or d.from_cache
-        return {
+        entry = {
             "choice": d.choice,
             "op": st.rep_feat.op,
             "bucket": st.bucket.sig(),
@@ -553,6 +715,9 @@ class BatchScheduler:
                 "ewma_ms": st.ewma_ms,
             },
         }
+        if st.transfer_info is not None:
+            entry["transfer"] = dict(st.transfer_info)
+        return entry
 
     # ----------------------------------------------------- finalization
     def finalize(self) -> Dict[str, Any]:
@@ -561,14 +726,17 @@ class BatchScheduler:
         AUTOSAGE_REPLAY_ONLY=1 then serves the same choices without a
         probe. Returns the stream stats. Writes nothing in replay mode."""
         if not self.cache.replay_only:
-            with self._lock:
-                snapshot = list(self._buckets.values())
-            with self.cache:
-                for st in snapshot:
-                    if not self.cache.contains(st.key):
-                        self.cache.put(st.key, self._bucket_entry(st, st.current()))
-                    self._push_stats(st)
-            self.cache.flush()
+            flush_guard = (resilience.cache_guard(op="finalize")
+                           if resilience.enabled() else contextlib.nullcontext())
+            with flush_guard:
+                with self._lock:
+                    snapshot = list(self._buckets.values())
+                with self.cache:
+                    for st in snapshot:
+                        if not self.cache.contains(st.key):
+                            self.cache.put(st.key, self._bucket_entry(st, st.current()))
+                        self._push_stats(st)
+                self.cache.flush()
         stats = self.stats()
         self._emit({"event": "finalize", **stats})
         return stats
@@ -596,6 +764,15 @@ class BatchScheduler:
             "drift_flags": self._drift_flags.value,
             "drift_reprobes": self._drift_reprobes.value,
             "drift_flips": self._drift_flips.value,
+            # cross-device transfers: buckets opened from a peer device
+            # class's probed ranking; confirmed = probe-free accepts plus
+            # confirm probes that agreed
+            "transfers": self._transfers.value,
+            "transfers_confirmed": self._transfers_confirmed.value,
+            "transfers_flipped": self._transfers_flipped.value,
+            "transfers_pending": (self._transfers.value - self._transfers_confirmed.value
+                                  - self._transfers_flipped.value),
+            "transfer_probe_free": self._transfer_probe_free.value,
         }
 
     def bucket_stats(self) -> List[Dict[str, Any]]:
@@ -625,6 +802,9 @@ class BatchScheduler:
                 "ref_ms": r4(st.ref_ms),
                 "drift_flagged": st.drift_flagged,
                 "reprobes": st.reprobes,
+                "transferred": st.transferred,
+                "transfer_verdict": st.transfer_verdict or None,
+                "transfer_source": (st.transfer_info or {}).get("source_device"),
             })
         return rows
 

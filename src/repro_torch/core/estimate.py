@@ -1,8 +1,7 @@
 """Roofline-style candidate estimates (paper §4.2 'shortlist candidates
 with a roofline-style estimate').
 
-Port of repro/core/estimate.py (all but the legacy per-op
-"csr_attention" op). Each variant is
+Port of repro/core/estimate.py. Each variant is
 modelled by the branch of the `repro` family it ports
 (registry.PORTED_FROM), so ``ragged_ell_cuda`` is costed exactly like
 ``ragged_ell_pallas``. Two constants of the JAX model described a Pallas
@@ -321,8 +320,10 @@ def estimate(feat: InputFeatures, hw: HardwareSpec, variant: str,
     kind: grad ops reuse the forward models ("spmm_bwd_b" is an SpMM
     roofline over the transposed features, "attention_bwd_e" an SDDMM
     one), and dynamic-values ops pay one extra nnz-sized scatter. The
-    legacy "csr_attention" op raises KeyError (estimate.py's "unknown
-    variant" signal)."""
+    legacy "csr_attention" op keeps the JAX package's branch, which
+    costs a pipeline as an SDDMM plus an SpMM by the variant's name: no
+    name of the attention pool is an SDDMM or SpMM family, so every one
+    raises KeyError (estimate.py's "unknown variant" signal)."""
     kind = op_kind(feat.op)
     if kind == "spmm":
         t = estimate_spmm(feat, hw, variant, knobs)
@@ -333,4 +334,11 @@ def estimate(feat: InputFeatures, hw: HardwareSpec, variant: str,
         return estimate_sddmm(feat, hw, variant, knobs)
     if feat.op == "attention":
         return estimate_attention(feat, hw, variant, knobs)
+    if feat.op == "csr_attention":
+        # legacy per-op path (pre-pipeline-scheduler); kept for old keys
+        t = estimate_sddmm(feat, hw, variant, knobs)
+        t += feat.nnz * 3 * BYTES_F32 / hw.hbm_bw
+        t += estimate_spmm(feat, hw, variant if variant != "gather_dot" else "gather_segsum",
+                           knobs)
+        return t
     raise KeyError(feat.op)

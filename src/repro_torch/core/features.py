@@ -144,9 +144,13 @@ def resolve_device(device=None) -> torch.device:
 
 def device_sig(device: torch.device) -> str:
     """Device identity embedded in every cache key, e.g.
-    ``cuda:NVIDIA H100 80GB HBM3:torch2.11.0+cu128``. The JAX package's
-    override for heterogeneous-fleet simulation joins with the fleet
-    slice."""
+    ``cuda:NVIDIA H100 80GB HBM3:torch2.11.0+cu128``. The env override
+    AUTOSAGE_DEVICE_SIG_OVERRIDE exists for heterogeneous-fleet
+    simulation: two processes on one box act as two device classes
+    (pair it with AUTOSAGE_HW_PROFILE so their rooflines differ too)."""
+    override = os.environ.get("AUTOSAGE_DEVICE_SIG_OVERRIDE")
+    if override:
+        return override
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else device.type
     return f"{device.type}:{kind}:torch{torch.__version__}"
 

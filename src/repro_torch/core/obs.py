@@ -1,17 +1,23 @@
 """Scheduler flight recorder: spans, metrics and the estimate scorecard.
 
-Port of the part of repro/core/obs.py that the SpMM slice calls:
+Port of the part of repro/core/obs.py that the scheduler stack calls:
 
   spans     nested spans over the decision procedure (``decide`` ->
             ``features``/``estimate``/``shortlist``/``probe``/
             ``guardrail``/``transfer``, ``prepare``, ``fwd.spmm``/
-            ``run``), recorded in memory only when ``AUTOSAGE_OBS`` is
+            ``run``, ``fault``, ``cache.lock_wait``/``cache.merge``), recorded in memory only when ``AUTOSAGE_OBS`` is
             set and this is not a replay run. The Perfetto export waits
             for a later slice.
   metrics   the process-wide registry of counters and log-bucketed
             histograms under the JAX package's metric names
             (``autosage_decides_total{op,tier,scheduler}``,
-            ``autosage_probe_ms``, ``autosage_prepare_ms``, ...). It
+            ``autosage_probe_ms``, ``autosage_prepare_ms``, the
+            resilience layer's ``autosage_faults_total{site,kind}``,
+            ``autosage_fallback_total{from,to}`` and
+            ``autosage_quarantine_total{event}``, the shared cache's
+            ``autosage_cache_lock_wait_ms{outcome}`` and
+            ``autosage_cache_merge_ms``, the transfer tier's
+            ``autosage_transfer_verdict_total{verdict}``, ...). It
             always counts in memory and never writes files.
   scorecard every probe feeds (candidate, est_ms, measured_ms) pairs
             into ``autosage_est_abs_err_ms`` / ``autosage_est_rel_err``;
@@ -142,6 +148,22 @@ class MetricsRegistry:
         with self._lock:
             return self._counters.get(name, {}).get(_label_key(labels))
 
+    def total(self, name: str, **labels: Any) -> float:
+        """Sum of a counter over every label set matching ``labels``
+        (subset match: total("x", op="spmm") sums all tiers)."""
+        want = {k: str(v) for k, v in labels.items()}
+        out = 0.0
+        with self._lock:
+            for lk, v in self._counters.get(name, {}).items():
+                d = dict(lk)
+                if all(d.get(k) == val for k, val in want.items()):
+                    out += v
+        return out
+
+    def hist_series(self, name: str) -> Dict[Tuple, Histogram]:
+        """Every label set of one histogram, label key -> Histogram."""
+        with self._lock:
+            return dict(self._hists.get(name, {}))
 
 
 REGISTRY = MetricsRegistry()

@@ -19,9 +19,13 @@ ops. This module decides at pipeline granularity instead:
 
 Entry points are `repro_torch.api.attention(csr, q, k, v, sage=...)`,
 `AutoSage.attention` and `AutoSage.decide_attention`; the GAT layer of
-models/gnn.py runs through the first. As in core/scheduler.py, the JAX
-package's transfer tier and resilience fallback chain are not here: a
-fault raises, and a cached choice that is not a candidate raises too.
+models/gnn.py runs through the first. As in core/scheduler.py, an
+exact-key miss first consults peer device classes' probed rankings
+(core/transfer.py; the end-to-end probe is the confirm pass of a
+non-confident transfer), and with resilience on the probe is
+sandboxed, a quarantined or unconstructible pin is re-decided (or
+raises `ReplayMiss` in replay mode) and a fault in the decision
+machinery yields an uncached 3-stage baseline decision.
 """
 from __future__ import annotations
 
@@ -31,8 +35,8 @@ from typing import Dict
 
 from repro_torch.core import obs
 from repro_torch.core import probe as probe_mod
-from repro_torch.core import registry, telemetry
-from repro_torch.core.cache import ScheduleCache
+from repro_torch.core import registry, resilience, telemetry
+from repro_torch.core.cache import ReplayMiss, ScheduleCache
 from repro_torch.core.features import InputFeatures, device_sig
 from repro_torch.core.guardrail import apply_guardrail
 from repro_torch.core.scheduler import (
@@ -66,14 +70,26 @@ class AttentionDecision(Decision):
 
 def decide_attention(
     sage: AutoSage, csr: CSR, d: int, seed: int = 0, stage_breakdown: bool = False,
+    allow_transfer: bool = True,
 ) -> AttentionDecision:
     """estimate -> end-to-end probe -> guardrail -> cache, at pipeline
     granularity. ``d`` is the head dimension (the F of the cache key)."""
     t0 = time.perf_counter()
     with obs.span("decide", op="attention", f=d, scheduler="exact"):
-        decision, tier = _decide_attention_impl(
-            sage, csr, d, seed=seed, stage_breakdown=stage_breakdown,
-        )
+        try:
+            decision, tier = _decide_attention_impl(
+                sage, csr, d, seed=seed, stage_breakdown=stage_breakdown,
+                allow_transfer=allow_transfer,
+            )
+        except ReplayMiss:
+            raise  # the replay contract stays loud — never rescued
+        except Exception as exc:
+            if not resilience.enabled() or not resilience.rescuable(exc):
+                raise
+            # mirror of AutoSage.decide's rescue: a runnable, uncached
+            # 3-stage baseline decision
+            resilience.record_fault("decide", "", "attention", exc, sage.device)
+            decision, tier = _rescue_attention(sage, csr, d), "fault"
     obs.REGISTRY.inc(
         "autosage_decides_total", op="attention", tier=tier, scheduler="exact"
     )
@@ -84,11 +100,22 @@ def decide_attention(
     return decision
 
 
+def _rescue_attention(sage: AutoSage, csr: CSR, d: int) -> AttentionDecision:
+    feat = InputFeatures.from_csr(csr, d, "attention")
+    base = registry.baseline(feat, sage.hw, sage.device)
+    return AttentionDecision(
+        op="attention", choice="baseline", variant=base, guardrail=None,
+        from_cache=False, probe_ms={}, probe_overhead_ms=0.0,
+        probe_iter_ms=0.0, estimates_ms={},
+    )
+
+
 def _decide_attention_impl(
     sage: AutoSage, csr: CSR, d: int, seed: int = 0, stage_breakdown: bool = False,
+    allow_transfer: bool = True,
 ) -> tuple:
     """decide_attention body; returns (decision, tier) with tier one of
-    "cache" | "probe"."""
+    "cache" | "transfer" | "probe"."""
     with obs.span("features", op="attention"):
         feat = InputFeatures.from_csr(csr, d, "attention")
     key = ScheduleCache.key(device_sig(sage.device), feat.graph_sig, d, "attention",
@@ -100,13 +127,11 @@ def _decide_attention_impl(
     by_name["baseline"] = base
 
     cached = sage.cache.get(key) if sage.cache is not None else None
+    cached = sage.usable_pin(key, cached, by_name)
     if cached is not None:
         choice = cached["choice"]
-        variant = by_name.get(choice)
-        if variant is None:
-            raise KeyError(f"cached choice {choice!r} for {key} is not a candidate here")
         decision = AttentionDecision(
-            op="attention", choice=choice, variant=variant, guardrail=None,
+            op="attention", choice=choice, variant=by_name[choice], guardrail=None,
             from_cache=True, probe_ms={}, probe_overhead_ms=0.0,
             probe_iter_ms=0.0, estimates_ms={},
             stage_ms=dict(cached.get("stage_ms", {})),
@@ -114,7 +139,22 @@ def _decide_attention_impl(
         telemetry.emit_attention_decision(decision, sage.device)
         return decision, "cache"
 
+    if resilience.enabled():
+        sage.breaker.maybe_sync()
     estimates, short = sage.shortlist(feat, cands)
+    plan = sage.transfer_plan(key, feat, short, by_name, base, allow_transfer)
+    if plan is not None and plan.confident:
+        decision = AttentionDecision(
+            op="attention", choice=plan.choice, variant=by_name[plan.choice],
+            guardrail=plan.guardrail, from_cache=False, probe_ms={},
+            probe_overhead_ms=0.0, probe_iter_ms=0.0, estimates_ms=estimates,
+            transfer=plan.provenance("confirmed"),
+        )
+        sage.pin_entry(key, entry_with_stats(decision, feat, base.full_name()), "attention")
+        obs.REGISTRY.inc("autosage_transfer_verdict_total", verdict="confirmed")
+        telemetry.emit_decide_event(decision, sage.device, feat, kind="transfer")
+        telemetry.emit_attention_decision(decision, sage.device)
+        return decision, "transfer"
     if short:
         with obs.span("probe", op="attention", n_candidates=len(short) + 1):
             outcome = sage.probe_candidates(
@@ -145,8 +185,13 @@ def _decide_attention_impl(
         probe_overhead_ms=outcome.overhead_ms, probe_iter_ms=outcome.iter_ms,
         estimates_ms=estimates, stage_ms=stage_ms,
     )
+    if plan is not None:
+        # the end-to-end probe doubles as the transfer's confirm pass
+        verdict = "confirmed" if gr.choice == plan.choice else "flipped"
+        decision.transfer = plan.provenance(verdict)
+        obs.REGISTRY.inc("autosage_transfer_verdict_total", verdict=verdict)
     if sage.cache is not None:
-        sage.cache.put(key, entry_with_stats(decision, feat, base.full_name()))
+        sage.pin_entry(key, entry_with_stats(decision, feat, base.full_name()), "attention")
     telemetry.emit_attention_decision(decision, sage.device)
     return decision, "probe"
 

@@ -2,8 +2,7 @@
 from, for SpMM, SDDMM, the runtime-valued SpMM of the backward ops and
 CSR attention.
 
-Port of repro/core/registry.py (all but the legacy per-op
-"csr_attention" op). A Variant bundles
+Port of repro/core/registry.py. A Variant bundles
 
   prepare(csr) -> aux dict             host-side format conversion
                                        (numpy), amortized
@@ -20,7 +19,12 @@ CUDA device, or on the CPU when AUTOSAGE_PROBE_PALLAS=1, where they run
 their plain versions. Backward ops draw the pool of their compute kind
 (features.op_kind): "spmm_bwd_b" SpMM candidates on the transpose,
 "attention_bwd_e" SDDMM candidates, "attention_bwd_q" the runtime-valued
-SpMM family, whose runners take (vals, b).
+SpMM family, whose runners take (vals, b). The legacy per-op
+"csr_attention" op draws the attention pool, as in the JAX package: its
+keys predate the pipeline scheduler, so estimate.py costs none of its
+candidates and `AutoSage.decide` serves the baseline through the
+resilience rescue, while a cached legacy entry that pins a fused kernel
+replays it.
 
 The memory gates compare the JAX package's layout-size expressions
 against ``HardwareSpec.layout_budget_bytes``: 512 MB on the CPU profiles
@@ -729,11 +733,6 @@ def candidates(
     include_kernels: Optional[bool] = None,
 ) -> List[Variant]:
     kind = op_kind(feat.op)
-    if feat.op == "csr_attention":
-        raise NotImplementedError(
-            "the legacy per-op 'csr_attention' op is not ported; use op "
-            "'attention' (the pipeline-level decision)"
-        )
     if include_kernels is None:
         include_kernels = (
             device.type == "cuda" or os.environ.get("AUTOSAGE_PROBE_PALLAS") == "1"

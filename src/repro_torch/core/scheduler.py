@@ -1,22 +1,30 @@
 """AutoSAGE scheduler: estimate -> micro-probe -> guardrail -> cache.
 
-Port of repro/core/scheduler.py for SpMM and (through core/pipeline.py)
-CSR attention: the paper's §4.2 decision procedure (`autosage_decide`)
-with the persistent cache fast path, slope probing on induced subgraphs
-with identical sampling per candidate, the top-k shortlist by roofline
-estimate and the non-regression guardrail (Prop. 1).
+Port of repro/core/scheduler.py for SpMM, SDDMM and (through
+core/pipeline.py) CSR attention: the paper's §4.2 decision procedure
+(`autosage_decide`) with the persistent cache fast path, slope probing
+on induced subgraphs with identical sampling per candidate, the top-k
+shortlist by roofline estimate and the non-regression guardrail
+(Prop. 1).
 
-The JAX package's estimate-space transfer from a peer device class's
-entry (core/transfer.py) needs a fleet of device classes; it joins the
-port with the fleet slice. Entries still carry the schema-v6 neutral
-part (features and probed ranking), so peers can read them.
+On an exact-key miss, a peer device class's probed entry for the same
+graph (core/transfer.py) can stand in for the probe: a confident
+re-rank under the local roofline is pinned and served with zero probes,
+a non-confident one is confirmed or flipped by the normal probe.
 
-The JAX package wraps decide and the runners in a fallback chain
-(core/resilience.py: chosen variant -> baseline -> oracle). The port has
-none yet, by design: on this path a fallback would hide a failing
-kernel. `decide` lets faults raise and `build_runner` returns the raw
-runner — the JAX package's behaviour under AUTOSAGE_RESILIENCE=0. The
-chain joins the port with the fleet slice (ROADMAP.md Queue 1 item 8).
+With resilience on (AUTOSAGE_RESILIENCE, default 1; core/resilience.py)
+each probe runs sandboxed under a watchdog, a faulting candidate feeds
+the per-(candidate, device) circuit breaker, quarantined candidates
+leave the shortlist, a quarantined pin is re-decided (or raises
+`ReplayMiss` in replay mode), a fault anywhere in the decision
+machinery yields an uncached baseline decision, and `build_runner`
+returns the fallback chain (chosen variant -> library baseline ->
+reference oracle). Every fault and fallback is counted
+(``autosage_faults_total``, ``autosage_fallback_total``), so a run can
+prove that no kernel hid behind a fallback. A sticky CUDA error
+re-raises: nothing can run after it. On a card the probe sandbox and
+the chain absorb only injected faults and watchdog timeouts; a real
+fault of a kernel is counted and re-raised (`resilience.must_raise`).
 """
 from __future__ import annotations
 
@@ -33,9 +41,10 @@ from repro_torch.core import features as features_mod
 from repro_torch.core import obs
 from repro_torch.core import probe as probe_mod
 from repro_torch.core import registry
+from repro_torch.core import resilience
 from repro_torch.core import telemetry
 from repro_torch.core import transfer as transfer_mod
-from repro_torch.core.cache import ScheduleCache
+from repro_torch.core.cache import ReplayMiss, ScheduleCache
 from repro_torch.core.features import (
     HardwareSpec,
     InputFeatures,
@@ -100,13 +109,20 @@ class Decision:
     probe_overhead_ms: float
     probe_iter_ms: float
     estimates_ms: Dict[str, float]
+    # cross-device provenance (core/transfer.py): set when this decision
+    # was transferred from a peer device's probed ranking — source_device,
+    # verdict (confirmed/pending/flipped), rank_agreement, predicted_ms
+    transfer: Optional[Dict[str, Any]] = None
 
     def to_cache_entry(self) -> Dict[str, Any]:
-        return {
+        entry: Dict[str, Any] = {
             "choice": self.choice,
             "probe_ms": self.probe_ms,
             "estimates_ms": self.estimates_ms,
         }
+        if self.transfer is not None:
+            entry["transfer"] = dict(self.transfer)
+        return entry
 
 
 def entry_with_stats(
@@ -116,7 +132,8 @@ def entry_with_stats(
 ) -> Dict[str, Any]:
     """Cache entry + running stats + the device-neutral part (input
     features and the probed ranking), laid out as the JAX package writes
-    it."""
+    it. A transferred-but-unprobed entry keeps ``probed_at`` 0.0, so any
+    real measurement beats it in the fleet merge."""
     entry = decision.to_cache_entry()
     probed = bool(decision.probe_ms)
     entry["probed"] = probed
@@ -137,6 +154,20 @@ def entry_with_stats(
         "probes": 1 if probed else 0,
     }
     return entry
+
+
+def _build_raw(csr: CSR, decision: Decision, graph_sig: str,
+               device: torch.device) -> Callable:
+    """Prepare ``decision``'s variant on the full graph and upload it:
+    the runner without a fallback chain."""
+    with obs.span("prepare", op=decision.op, choice=decision.choice):
+        aux = decision.variant.timed_prepare(csr)
+        runner = decision.variant.build(aux, device)
+    padding = {k: float(v) for k, v in aux.items() if k.endswith("padding_frac")}
+    if padding:
+        telemetry.emit_decide_event(decision, device, padding=padding, graph_sig=graph_sig,
+                                    kind="prepare")
+    return runner
 
 
 class AutoSage:
@@ -168,6 +199,10 @@ class AutoSage:
         # plus an upload, paid once per (graph, op, choice)
         self._runners: Dict[tuple, Callable] = {}
         self._runner_cap = int(os.environ.get("AUTOSAGE_RUNNER_CACHE", "64"))
+        # per-(candidate, device) circuit breaker (core/resilience.py): its
+        # quarantine records persist through the cache, so fleet workers
+        # share the blacklist
+        self.breaker = resilience.CircuitBreaker(cache=self.cache, device=self.device)
 
     # ------------------------------------------------------------------
     def probe_candidates(
@@ -210,10 +245,49 @@ class AutoSage:
                     return slope * csr.n_rows  # extrapolated marginal cost
             return times[-1]
 
-        probe_ms: Dict[str, float] = {"baseline": _time(base)}
+        def _sandboxed_time(v: registry.Variant) -> Optional[float]:
+            """Probe one candidate under the watchdog; a candidate that
+            raises or hangs drops out of this pass (None) instead of
+            aborting it, and its failure feeds the breaker. A fault is
+            not a measurement, so nothing lands in probe_ms. A fault
+            that `resilience.must_raise` (on a card: any real one) is
+            counted and re-raised."""
+            name = v.full_name()
+            if not resilience.enabled():
+                return _time(v)
+            try:
+                t = resilience.run_with_timeout(
+                    lambda: _time(v), resilience.policy_for("probe").timeout_s,
+                    "probe", name=name,
+                )
+                if not v.is_baseline:
+                    self.breaker.record_success(name)
+                return t
+            except Exception as exc:
+                resilience.record_fault("probe", name, v.op, exc, self.device)
+                if resilience.must_raise(exc, self.device):
+                    raise resilience.surface(exc)
+                if not v.is_baseline:  # the lifeline is never blacklisted
+                    self.breaker.record_failure(
+                        name, site="probe", op=v.op,
+                        permanent=resilience.classify(exc) == resilience.PERMANENT,
+                    )
+                return None
+
+        probe_ms: Dict[str, float] = {}
+        tb = _sandboxed_time(base)
+        if tb is not None:
+            probe_ms["baseline"] = tb
+        else:
+            # a faulting baseline probe must not veto a working
+            # challenger: an infinite reference cost accepts whichever
+            # candidate measured clean (the run-time chain still guards)
+            tb = float("inf")
         best_name, t_star = None, float("inf")
         for v in shortlist:
-            t = _time(v)
+            t = _sandboxed_time(v)
+            if t is None:
+                continue
             probe_ms[v.full_name()] = t
             if t < t_star:
                 best_name, t_star = v.full_name(), t
@@ -221,7 +295,7 @@ class AutoSage:
             probe_ms=probe_ms,
             best_name=best_name,
             t_best_ms=t_star,
-            t_baseline_ms=probe_ms["baseline"],
+            t_baseline_ms=tb,
             overhead_ms=(time.perf_counter() - t_probe0) * 1e3,
             iter_ms=iter_ms_total[0],
         )
@@ -234,7 +308,8 @@ class AutoSage:
             estimates = est.estimates_for(feat, self.hw, cands)
         with obs.span("shortlist", op=feat.op, top_k=self.top_k):
             short = sorted(
-                (v for v in cands if not v.is_baseline),
+                (v for v in cands
+                 if not v.is_baseline and not self.breaker.is_excluded(v.full_name())),
                 key=lambda v: estimates[v.full_name()],
             )[: self.top_k]
         return estimates, short
@@ -247,19 +322,93 @@ class AutoSage:
         op: str,
         probe_args_fn: Optional[Callable[[CSR], tuple]] = None,
         seed: int = 0,
+        allow_transfer: bool = True,
     ) -> Decision:
-        """The paper's `autosage_decide(features, F, op)`."""
+        """The paper's `autosage_decide(features, F, op)`.
+
+        ``allow_transfer=False`` forces a real local measurement on an
+        exact-key miss (the batch scheduler's confirm and drift re-probes
+        use it). With resilience on, a fault inside the decision
+        machinery yields an uncached baseline decision (tier "fault");
+        `ReplayMiss`, sticky CUDA errors and, on a card, a kernel's real
+        fault (`resilience.rescuable`) always raise."""
         t0 = time.perf_counter()
         with obs.span("decide", op=op, f=f, scheduler="exact"):
-            decision, tier = self._decide_impl(
-                csr, f, op, probe_args_fn=probe_args_fn, seed=seed,
-            )
+            try:
+                decision, tier = self._decide_impl(
+                    csr, f, op, probe_args_fn=probe_args_fn, seed=seed,
+                    allow_transfer=allow_transfer,
+                )
+            except ReplayMiss:
+                raise  # the replay contract stays loud — never rescued
+            except Exception as exc:
+                if not resilience.enabled() or not resilience.rescuable(exc):
+                    raise
+                resilience.record_fault("decide", "", op, exc, self.device)
+                decision, tier = self._rescue_decision(csr, f, op), "fault"
         obs.REGISTRY.inc("autosage_decides_total", op=op, tier=tier, scheduler="exact")
         obs.REGISTRY.observe(
             "autosage_decide_ms", (time.perf_counter() - t0) * 1e3,
             op=op, scheduler="exact",
         )
         return decision
+
+    def _rescue_decision(self, csr: CSR, f: int, op: str) -> Decision:
+        """Provisional baseline decision for the decide-path rescue: not
+        cached (the fault may be transient), never a poisoned pin."""
+        feat = InputFeatures.from_csr(csr, f, op)
+        base = registry.baseline(feat, self.hw, self.device)
+        return Decision(
+            op=op, choice="baseline", variant=base, guardrail=None,
+            from_cache=False, probe_ms={}, probe_overhead_ms=0.0,
+            probe_iter_ms=0.0, estimates_ms={},
+        )
+
+    def usable_pin(self, key: str, cached: Optional[Dict[str, Any]],
+                   by_name: Dict[str, registry.Variant]) -> Optional[Dict[str, Any]]:
+        """The cached entry if its choice may be served here, else None
+        (re-decide). A pin that is quarantined (resilience on) or that
+        this process cannot construct raises `ReplayMiss` in replay mode
+        — never a silent substitute — and is re-decided otherwise."""
+        if cached is None:
+            return None
+        choice = cached.get("choice")
+        why = None
+        if choice not in by_name:
+            why = "is not a candidate here"
+        elif resilience.enabled() and choice != "baseline":
+            self.breaker.maybe_sync()
+            if self.breaker.is_quarantined(choice):
+                why = "is quarantined"
+        if why is None:
+            return cached
+        if self.cache.replay_only:
+            raise ReplayMiss(
+                f"pinned choice {choice!r} for {key} {why} "
+                "(AUTOSAGE_REPLAY_ONLY=1 forbids substituting)"
+            )
+        return None
+
+    def transfer_plan(self, key: str, feat: InputFeatures, short: list,
+                      by_name: Dict[str, registry.Variant], base: registry.Variant,
+                      allow_transfer: bool):
+        """The transfer tier's plan for an exact-key miss, or None: a
+        peer device class's probed entry for the same regime re-ranked
+        under the local roofline (core/transfer.py)."""
+        if not (allow_transfer and short and transfer_mod.enabled()
+                and self.cache is not None and not self.cache.replay_only):
+            return None
+        return transfer_mod.best_plan(
+            self.cache.peer_entries(key), feat, self.hw, by_name, base, self.alpha,
+            excluded=self.breaker.excluded_names(),
+        )
+
+    def pin_entry(self, key: str, entry: Dict[str, Any], op: str) -> None:
+        """Pin an entry; a failed write (lock timeout, injected fault,
+        disk error) is counted and the decision still returned, the
+        entry left dirty for the next flush."""
+        with resilience.cache_guard(op=op):
+            self.cache.put(key, entry)
 
     def _decide_impl(
         self,
@@ -268,9 +417,10 @@ class AutoSage:
         op: str,
         probe_args_fn: Optional[Callable[[CSR], tuple]] = None,
         seed: int = 0,
+        allow_transfer: bool = True,
     ) -> tuple:
         """decide() body; returns (Decision, tier) with tier one of
-        "cache" | "probe"."""
+        "cache" | "transfer" | "probe"."""
         with obs.span("features", op=op):
             feat = InputFeatures.from_csr(csr, f, op)
         key = ScheduleCache.key(device_sig(self.device), feat.graph_sig, f, op, self.alpha)
@@ -281,22 +431,35 @@ class AutoSage:
         by_name["baseline"] = base
 
         cached = self.cache.get(key) if self.cache is not None else None
+        cached = self.usable_pin(key, cached, by_name)
         if cached is not None:
             choice = cached["choice"]
-            variant = by_name.get(choice)
-            if variant is None:
-                raise KeyError(
-                    f"cached choice {choice!r} for {key} is not a candidate here"
-                )
             decision = Decision(
-                op=op, choice=choice, variant=variant, guardrail=None,
+                op=op, choice=choice, variant=by_name[choice], guardrail=None,
                 from_cache=True, probe_ms={}, probe_overhead_ms=0.0,
                 probe_iter_ms=0.0, estimates_ms={},
             )
             telemetry.emit_decide_event(decision, self.device, feat)
             return decision, "cache"
 
+        if resilience.enabled():
+            # cold path: fold in the quarantines peers persisted since our
+            # last look before shortlisting and transferring
+            self.breaker.maybe_sync()
         estimates, short = self.shortlist(feat, cands)
+        plan = self.transfer_plan(key, feat, short, by_name, base, allow_transfer)
+        if plan is not None and plan.confident:
+            decision = Decision(
+                op=op, choice=plan.choice, variant=by_name[plan.choice],
+                guardrail=plan.guardrail, from_cache=False, probe_ms={},
+                probe_overhead_ms=0.0, probe_iter_ms=0.0, estimates_ms=estimates,
+                transfer=plan.provenance("confirmed"),
+            )
+            self.pin_entry(key, entry_with_stats(decision, feat, base.full_name()), op)
+            obs.REGISTRY.inc("autosage_transfer_verdict_total", verdict="confirmed")
+            telemetry.emit_decide_event(decision, self.device, feat, kind="transfer")
+            return decision, "transfer"
+
         if short:
             with obs.span("probe", op=op, n_candidates=len(short) + 1):
                 outcome = self.probe_candidates(
@@ -323,43 +486,71 @@ class AutoSage:
             probe_overhead_ms=outcome.overhead_ms,
             probe_iter_ms=outcome.iter_ms, estimates_ms=estimates,
         )
+        if plan is not None:
+            # the probe doubles as the transfer's confirm measurement
+            verdict = "confirmed" if gr.choice == plan.choice else "flipped"
+            decision.transfer = plan.provenance(verdict)
+            obs.REGISTRY.inc("autosage_transfer_verdict_total", verdict=verdict)
         if self.cache is not None:
-            self.cache.put(key, entry_with_stats(decision, feat, base.full_name()))
+            self.pin_entry(key, entry_with_stats(decision, feat, base.full_name()), op)
         telemetry.emit_decide_event(decision, self.device, feat)
         return decision, "probe"
 
     # ------------------------------------------------------------------
     def build_runner(self, csr: CSR, decision: Decision) -> Callable:
         """Prepare the chosen variant on the FULL graph, upload it to the
-        device and return its runner (memoized per graph/op/choice)."""
+        device and return its runner (memoized per graph/op/choice). With
+        resilience on, the runner is the fallback chain — chosen variant
+        -> library baseline -> reference oracle — built lazily at its
+        first call, so a choice that raises at prepare or run time
+        degrades instead of failing the call, and its failures feed the
+        breaker (core/resilience.py)."""
         key = (graph_signature(csr), decision.op, decision.choice)
         runner = self._runners.pop(key, None)
         if runner is None:
-            with obs.span("prepare", op=decision.op, choice=decision.choice):
-                aux = decision.variant.timed_prepare(csr)
-                runner = decision.variant.build(aux, self.device)
-            padding = {
-                k: float(v) for k, v in aux.items() if k.endswith("padding_frac")
-            }
-            if padding:
-                telemetry.emit_decide_event(
-                    decision, self.device, padding=padding, graph_sig=key[0],
-                    kind="prepare",
-                )
+            if resilience.enabled():
+                runner = self._build_chain(csr, decision, graph_sig=key[0])
+            else:
+                runner = _build_raw(csr, decision, key[0], self.device)
             while len(self._runners) >= max(self._runner_cap, 1):
                 self._runners.pop(next(iter(self._runners)))
         self._runners[key] = runner  # (re)insert at MRU position
         return runner
 
+    def _build_chain(self, csr: CSR, decision: Decision, graph_sig: str) -> Callable:
+        """Fallback-chain runner. Stage 0 (the pinned choice) is the raw
+        build, padding telemetry included, so the fault-free path runs
+        exactly what the unwrapped runner runs. The stages close over
+        the device, never over this AutoSage: a runner in the memo that
+        referred back to its scheduler would keep both (and the layouts
+        on the card) alive until a garbage-collector pass."""
+        device, hw = self.device, self.hw
+
+        def build_choice(args):
+            return _build_raw(csr, decision, graph_sig, device)
+
+        stages = [(decision.choice, build_choice, True)]
+        if decision.choice != "baseline":
+            stages += resilience.fallback_stages(csr, decision.op, "baseline", None, hw, device)
+        else:
+            # the choice IS the baseline: it fronts the chain, backed by
+            # the oracle only
+            stages.append(("reference",
+                           lambda args: resilience.reference_runner(csr, decision.op, device),
+                           False))
+        return resilience.chain_runner(stages, decision.op, breaker=self.breaker,
+                                       device=device)
+
     # ---- pipeline-level CSR attention (core/pipeline.py) -------------
     def decide_attention(self, csr: CSR, d: int, seed: int = 0,
-                         stage_breakdown: bool = False):
+                         stage_breakdown: bool = False, allow_transfer: bool = True):
         """Joint decision over the composed {sddmm x softmax x spmm}
         pipelines and the fused CUDA kernels; cached under op="attention"."""
         from repro_torch.core import pipeline
 
         return pipeline.decide_attention(
-            self, csr, d, seed=seed, stage_breakdown=stage_breakdown
+            self, csr, d, seed=seed, stage_breakdown=stage_breakdown,
+            allow_transfer=allow_transfer,
         )
 
     def attention(self, csr: CSR, q, k, v, seed: int = 0):

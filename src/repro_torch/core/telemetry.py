@@ -1,9 +1,11 @@
 """CSV + JSON telemetry (paper §10: every CSV gets a .meta.json sidecar
 with device, software versions, and the AUTOSAGE_* env snapshot).
 
-Port of repro/core/telemetry.py for the SpMM, attention and batch
-slices: the CSV writer, the per-op decide/prepare stream, the
-attention-decision stream and the batch-scheduler stream. JSONL streams
+Port of repro/core/telemetry.py for the SpMM, attention, batch and
+fleet slices: the CSV writer, the per-op decide/prepare stream (with the
+transfer provenance of transferred decisions), the attention-decision
+stream, the batch-scheduler stream and the resilience layer's fault
+stream. JSONL streams
 keep one unbuffered O_APPEND handle per process and write every record
 as one write() of one full line, so concurrent writer processes
 interleave whole records.
@@ -85,19 +87,34 @@ def close_streams() -> None:
 atexit.register(close_streams)
 
 
-def append_jsonl(path: str, record: Dict, device: torch.device) -> None:
-    """Append one JSON record, tagged with the device signature, the
-    stream schema version and a monotonic timestamp, in one write()."""
+def append_jsonl(path: str, record: Dict, device: Optional[torch.device]) -> None:
+    """Append one JSON record, tagged with the device signature (None
+    when the writer has no device, as a cache-lock fault), the stream
+    schema version and a monotonic timestamp, in one write()."""
     line = json.dumps(
         {
             "schema": JSONL_SCHEMA,
             "t_mono": time.monotonic(),
-            "device_sig": device_sig(device),
+            "device_sig": None if device is None else device_sig(device),
             **record,
         },
         sort_keys=True,
     ) + "\n"
     _handle(path).write(line.encode())
+
+
+def emit_fault_event(event: Dict, device: Optional[torch.device] = None) -> Optional[str]:
+    """Resilience-layer stream (faults.jsonl): fault, fallback,
+    quarantine and recovery events from core/resilience.py, one record
+    per event.
+
+    No-op unless AUTOSAGE_TELEMETRY_DIR is set. Returns the path written."""
+    out = os.environ.get("AUTOSAGE_TELEMETRY_DIR")
+    if not out:
+        return None
+    path = str(Path(out) / "faults.jsonl")
+    append_jsonl(path, event, device)
+    return path
 
 
 def emit_decide_event(
@@ -125,6 +142,16 @@ def emit_decide_event(
         "choice": decision.choice,
         "from_cache": decision.from_cache,
     }
+    tr = getattr(decision, "transfer", None)
+    if tr:
+        # cross-device provenance: the donor device, how the local
+        # re-rank agreed with it, and the confirm verdict
+        rec["transfer"] = {
+            k: tr[k]
+            for k in ("source_device", "verdict", "rank_agreement", "top1_agrees",
+                      "peer_choice")
+            if k in tr
+        }
     if feat is not None:
         rec.update(
             graph_sig=feat.graph_sig,

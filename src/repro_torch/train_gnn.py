@@ -1,13 +1,15 @@
 """GraphSAGE training on a synthetic Reddit-shaped graph, with every
 forward and backward aggregation scheduled.
 
-Port of examples/train_gnn.py's ``make_data``, ``train_full`` and
-``train_minibatch``:
+Port of examples/train_gnn.py's ``make_data``, ``train_full``,
+``train_minibatch`` and ``train_fleet``:
 
     PYTHONPATH=src python -m repro_torch.train_gnn --epochs 30 --scale 0.01
     PYTHONPATH=src python -m repro_torch.train_gnn --device cpu --epochs 3
     PYTHONPATH=src python -m repro_torch.train_gnn --minibatch 1024 \
         --probe-budget-ms 2000 --epochs 1 --scale 0.25
+    PYTHONPATH=src python -m repro_torch.train_gnn --workers 2 \
+        --minibatch 1024 --epochs 1 --scale 0.05 --cache fleet.json
 
 Full-graph training runs the forward SpMMs ("spmm") and their backward
 ("spmm_bwd_b" on the memoized transpose) as scheduled decisions of one
@@ -18,13 +20,25 @@ their rectangular sub-adjacency (`SAGE.minibatch_forward`): one
 `BatchScheduler` serves the whole stream, every subgraph's decisions
 bucketed under one probe budget, and each step's wall time (synchronized
 on a CUDA device) feeds `observe`. Plain SGD (lr 0.05) on the mean
-log-softmax negative log-likelihood, as in the JAX example. The JAX
-example's fleet mode (``--workers``, ``--cache``, ``--shared``) waits
-for the port's fleet slice.
+log-softmax negative log-likelihood, as in the JAX example.
+
+Fleet mode (``--workers N``) spawns N subprocess minibatch trainers
+against ONE schedule cache (``--cache``, merge-on-flush under its
+lockfile, AUTOSAGE_CACHE_SHARED=1): each opens the buckets its peers
+probed warm (`ScheduleCache.maybe_reload`) and re-probes buckets whose
+observed runtime drifts. Worker w samples its row sets with seed 1 + w,
+runs on ``--device`` (the card by default) and writes its stream stats,
+with its process's fault and fallback counts, to a JSON file; the parent
+prints their sum and then one JSON line ``{"workers": [...], "cache":
+...}``. All workers start at once, as in the JAX example.
 """
 from __future__ import annotations
 
 import argparse
+import json
+import os
+import subprocess
+import sys
 import time
 from typing import Callable, List, Optional, Tuple
 
@@ -144,6 +158,48 @@ def train_minibatch(model: SAGE, graph: CSR, x: torch.Tensor, y: torch.Tensor,
     return losses
 
 
+def train_fleet(args) -> list:
+    """Spawn ``args.workers`` subprocess minibatch trainers against one
+    shared schedule cache; returns their stats dicts (worker order).
+    Raises SystemExit if a worker fails."""
+    cache = os.path.abspath(args.cache or "fleet_cache.json")
+    procs, stats_paths = [], []
+    for w in range(args.workers):
+        stats_path = f"{cache}.worker{w}.stats.json"
+        stats_paths.append(stats_path)
+        cmd = [
+            sys.executable, "-m", "repro_torch.train_gnn",
+            "--minibatch", str(args.minibatch), "--epochs", str(args.epochs),
+            "--scale", str(args.scale), "--cache", cache, "--shared",
+            "--probe-budget-ms", str(args.probe_budget_ms),
+            "--worker-id", str(w), "--stats-json", stats_path,
+        ]
+        if args.device:
+            cmd += ["--device", args.device]
+        env = {**os.environ, "AUTOSAGE_CACHE_SHARED": "1"}
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        env.get("PYTHONPATH")) if p)
+        procs.append(subprocess.Popen(cmd, env=env))
+    rcs = [p.wait() for p in procs]
+    if any(rcs):
+        raise SystemExit(f"worker exit codes: {rcs}")
+    stats = []
+    for sp in stats_paths:
+        with open(sp) as fh:
+            stats.append(json.load(fh))
+        os.unlink(sp)
+    totals = {k: sum(s.get(k, 0) for s in stats)
+              for k in ("decides", "probes_run", "warm_cache_opens", "drift_reprobes",
+                        "drift_flips")}
+    print(f"fleet of {args.workers}: {totals['decides']} decides, "
+          f"{totals['probes_run']} probes total, {totals['warm_cache_opens']} buckets "
+          f"opened warm from peers, {totals['drift_reprobes']} drift re-probes "
+          f"({totals['drift_flips']} flipped); merged cache: {cache}")
+    print(json.dumps({"workers": stats, "cache": cache}, sort_keys=True), flush=True)
+    return stats
+
+
 def decisions(sage: AutoSage, ops=("spmm", "spmm_bwd_b")) -> dict:
     """cache key -> choice of every cached decision of ``ops``."""
     return {k: sage.cache.get(k)["choice"] for op in ops for k in sage.cache.keys_for_op(op)}
@@ -159,12 +215,24 @@ def main(argv=None) -> None:
                     help="rows per sampled subgraph; 0 = full-graph training")
     ap.add_argument("--probe-budget-ms", type=float, default=2000.0,
                     help="shared probe budget for the minibatch stream")
+    ap.add_argument("--workers", type=int, default=0,
+                    help="fleet mode: N subprocess trainers against one shared "
+                         "cache (implies --minibatch 1024 unless given)")
+    ap.add_argument("--shared", action="store_true",
+                    help="merge-on-flush shared cache (set in fleet workers)")
+    ap.add_argument("--worker-id", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--stats-json", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+
+    if args.workers:
+        args.minibatch = args.minibatch or 1024
+        train_fleet(args)
+        return
 
     classes, in_dim = 16, 64
     graph = reddit_like(scale=args.scale)
     feats, labels = make_data(graph, classes, in_dim)
-    cache = ScheduleCache(path=args.cache or None)
+    cache = ScheduleCache(path=args.cache or None, shared=args.shared or None)
     if args.minibatch:
         sage = AutoSage(cache=cache, device=args.device, probe_iters=2,
                         probe_cap_ms=200, probe_frac=0.25)
@@ -175,10 +243,19 @@ def main(argv=None) -> None:
     x, y = torch.from_numpy(feats).to(device), torch.from_numpy(labels).to(device)
     if args.minibatch:
         bs = BatchScheduler(sage, probe_budget_ms=args.probe_budget_ms)
-        train_minibatch(model, graph, x, y, bs, args.minibatch, epochs=args.epochs)
+        train_minibatch(model, graph, x, y, bs, args.minibatch, epochs=args.epochs,
+                        seed=1 + args.worker_id)
         s = bs.stats()
+        if args.stats_json:
+            from repro_torch.core import obs
+
+            with open(args.stats_json, "w") as fh:
+                json.dump({**s, **{name: obs.REGISTRY.total(name) for name in
+                                   ("autosage_faults_total", "autosage_fallback_total")}},
+                          fh)
         print(f"batched decide: {s['decides']} decides -> {s['buckets']} buckets, "
-              f"{s['probes_run']} probes ({s['probes_avoided']} avoided), drift: "
+              f"{s['probes_run']} probes ({s['probes_avoided']} avoided, "
+              f"{s['warm_cache_opens']} opened warm from the cache), drift: "
               f"{s['drift_flags']} flags / {s['drift_reprobes']} re-probes / "
               f"{s['drift_flips']} flips, probe budget spent "
               f"{s['probe_spent_ms']:.0f}/{s['probe_budget_ms']:.0f}ms")

@@ -377,8 +377,6 @@ def fixed_probe(monkeypatch):
     monkeypatch.setattr(probe_mod, "time_callable", _port_fixed_timer)
     monkeypatch.setattr(jx_probe, "time_callable", _jax_fixed_timer)
     monkeypatch.delenv("AUTOSAGE_PROBE_PALLAS", raising=False)
-    monkeypatch.setenv("AUTOSAGE_RESILIENCE", "0")  # the port has no fallback chain
-    monkeypatch.setenv("AUTOSAGE_TRANSFER", "0")  # nor the transfer tier
 
 
 def _tiny_bs(probe_budget_ms=60_000, **knobs):

@@ -592,3 +592,122 @@ def test_drift_reprobe_flips_decision_real_kernels(cuda):
     assert s["buckets"] == 1 and choices[0] == "row_ell", (s, choices)
     assert s["drift_reprobes"] >= 1 and s["drift_flips"] >= 1, (s, choices)
     assert choices[-1] != "row_ell", choices
+
+
+# ------------------------------------------- fleet and cross-device tier
+def _ref_spmm(csr, b):
+    from repro_torch.kernels import ref
+
+    dev = b.device
+    val = None if csr.val is None else torch.from_numpy(np.asarray(csr.val, np.float32)).to(dev)
+    return ref.spmm_ref(torch.from_numpy(csr.rowptr).to(dev),
+                        torch.from_numpy(csr.colind).to(dev), val, b)
+
+
+def test_run_faults_fall_back_quarantine_and_recover_on_the_card(cuda, tmp_path, monkeypatch):
+    """Chip-smoke phase 12a at a small size: run faults injected on a
+    pinned ragged_ell_cuda serve the baseline without launching the
+    kernel, count one fault and one fallback each, quarantine the
+    candidate (a replay-only scheduler then raises ReplayMiss), and
+    after the TTL the half-open call launches the kernel again."""
+    import time
+
+    from repro_torch.core import (
+        AutoSage,
+        InputFeatures,
+        ReplayMiss,
+        ScheduleCache,
+        device_sig,
+        faultinject,
+        obs,
+        registry,
+    )
+
+    csr = _graph("hub_skew")
+    b = _b(csr, 256, cuda)
+    want = _ref_spmm(csr, b)
+    path = str(tmp_path / "c.json")
+    sage = AutoSage(device=cuda, cache=ScheduleCache(path=path))
+    feat = InputFeatures.from_csr(csr, 256, "spmm")
+    choice = next(v.full_name() for v in registry.candidates(feat, sage.hw, cuda)
+                  if v.name == "ragged_ell_cuda" and v.knobs["rb"] == 8 and v.knobs["bc"] == 8)
+    sage.cache.put(ScheduleCache.key(device_sig(cuda), feat.graph_sig, 256, "spmm", sage.alpha),
+                   {"choice": choice, "probe_ms": {}, "estimates_ms": {}})
+    monkeypatch.setenv("AUTOSAGE_FAULT_RETRIES", "0")
+    monkeypatch.setenv("AUTOSAGE_BREAKER_N", "3")
+    monkeypatch.setenv("AUTOSAGE_QUARANTINE_TTL_S", "1")
+    runner = sage.build_runner(csr, sage.decide(csr, 256, "spmm"))
+    _close(runner(b), want)
+    faults0 = obs.REGISTRY.total("autosage_faults_total")
+    fallbacks0 = obs.REGISTRY.total("autosage_fallback_total")
+    launches0 = ks.LAUNCHES["spmm_ragged_ell"]
+    monkeypatch.setenv("AUTOSAGE_FAULT", "run:ragged_ell_cuda:raise:3")
+    faultinject.reset()
+    for _ in range(3):
+        _close(runner(b), want)
+    monkeypatch.delenv("AUTOSAGE_FAULT")
+    faultinject.reset()
+    assert ks.LAUNCHES["spmm_ragged_ell"] == launches0
+    assert obs.REGISTRY.total("autosage_faults_total") == faults0 + 3
+    assert obs.REGISTRY.total("autosage_fallback_total") == fallbacks0 + 3
+    assert sage.breaker.is_quarantined(choice)
+    with pytest.raises(ReplayMiss, match="quarantined"):
+        AutoSage(device=cuda, cache=ScheduleCache(path=path, replay_only=True)).decide(
+            csr, 256, "spmm")
+    time.sleep(1.2)
+    _close(runner(b), want)
+    assert ks.LAUNCHES["spmm_ragged_ell"] == launches0 + 1
+    assert not sage.breaker.is_quarantined(choice)
+
+
+def test_legacy_csr_attention_on_the_card(cuda, tmp_path):
+    """Chip-smoke phase 12b at a small size: the legacy op decides the
+    baseline; a legacy entry pinned to the ragged fused kernel replays
+    it (one launch) within the tolerance."""
+    from repro_torch.core import AutoSage, InputFeatures, ScheduleCache, device_sig, registry
+    from repro_torch.kernels import ref
+
+    csr = hub_skew(3000, 4, 0.05, 300, seed=2).dedup_edges()
+    q, k, v = (_b(csr, 64 + i, cuda)[:, :64].contiguous() for i in range(3))
+    rp, ci = (torch.from_numpy(a).to(cuda) for a in (csr.rowptr, csr.colind))
+    want = ref.csr_attention_ref(rp, ci, q, k, v)
+    sage = AutoSage(device=cuda, cache=ScheduleCache(path=None))
+    d = sage.decide(csr, 64, "csr_attention")
+    assert d.choice == "baseline" and d.estimates_ms == {}
+    _close(sage.build_runner(csr, d)(q, k, v), want)
+    feat = InputFeatures.from_csr(csr, 64, "csr_attention")
+    name = next(v_.full_name() for v_ in registry.candidates(feat, sage.hw, cuda)
+                if v_.name == "ragged_attention_cuda")
+    path = str(tmp_path / "legacy.json")
+    ScheduleCache(path=path).put(
+        ScheduleCache.key(device_sig(cuda), feat.graph_sig, 64, "csr_attention", sage.alpha),
+        {"choice": name, "probe_ms": {}, "estimates_ms": {}})
+    replay = AutoSage(device=cuda, cache=ScheduleCache(path=path, replay_only=True))
+    d = replay.decide(csr, 64, "csr_attention")
+    before = ka.LAUNCHES["fused_ragged_attention"]
+    _close(replay.build_runner(csr, d)(q, k, v), want)
+    assert d.from_cache and ka.LAUNCHES["fused_ragged_attention"] == before + 1
+
+
+def test_transfer_from_a_cpu_donor_to_the_card(cuda, tmp_path, monkeypatch):
+    """Chip-smoke phase 12c at a small size: the port on the CPU (kernel
+    families' plain versions probed) donates its ranking; the card's
+    decide carries the CPU provenance, a confident transfer runs no
+    probe, and the output matches the reference either way."""
+    from repro_torch.core import AutoSage, ScheduleCache, obs
+
+    csr = _graph("hub_skew")
+    path = str(tmp_path / "t.json")
+    monkeypatch.setenv("AUTOSAGE_PROBE_PALLAS", "1")
+    donor = AutoSage(device="cpu", cache=ScheduleCache(path=path), probe_iters=1)
+    assert donor.decide(csr, 64, "spmm").probe_ms
+    monkeypatch.delenv("AUTOSAGE_PROBE_PALLAS")
+    sage = AutoSage(device=cuda, cache=ScheduleCache(path=path), probe_iters=1)
+    passes0 = obs.REGISTRY.total("autosage_probe_passes_total", op="spmm")
+    d = sage.decide(csr, 64, "spmm")
+    assert d.transfer is not None and d.transfer["source_device"].startswith("cpu:")
+    if not d.probe_ms:
+        assert d.transfer["verdict"] == "confirmed"
+        assert obs.REGISTRY.total("autosage_probe_passes_total", op="spmm") == passes0
+    b = _b(csr, 64, cuda)
+    _close(sage.build_runner(csr, d)(b), _ref_spmm(csr, b))

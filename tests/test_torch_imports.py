@@ -65,6 +65,9 @@ def test_every_slice_module_is_checked():
         "src/repro_torch/kernels/ops.py",
         "src/repro_torch/kernels/softmax.py",
         "src/repro_torch/core/batch.py",
+        "src/repro_torch/core/resilience.py",
+        "src/repro_torch/core/transfer.py",
+        "src/repro_torch/shared_worker.py",
         "chip_smoke.py",
     } <= checked
     assert (PORT / "csrc" / "attention.cu").is_file()

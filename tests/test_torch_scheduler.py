@@ -488,3 +488,78 @@ def test_backward_cache_entries_replay_in_both_packages(tmp_path, monkeypatch):
     replay = JxSage(cache=JxCache(path=ppath, replay_only=True))
     np.testing.assert_allclose(jx_grad(replay), got, rtol=1e-4, atol=1e-4)
     assert {k: e["choice"] for k, e in json.loads(open(ppath).read()).items()} == port_written
+
+
+# ----------------------------------------- the legacy "csr_attention" op
+@pytest.mark.parametrize("pallas", [False, True], ids=["library", "kernels"])
+def test_legacy_csr_attention_candidates_and_decision_match_jax(pallas, monkeypatch):
+    """The legacy per-op op draws the attention pool, variant for variant
+    the JAX package's; its estimate branch costs none of them in either
+    package (KeyError), so both decide the baseline through the decide
+    rescue: empty estimates, tier "fault", nothing cached."""
+    from repro.core import AutoSage as JxSage
+    from repro.core import obs as jx_obs
+    from repro.sparse import hub_skew as jx_hub_skew
+    from repro_torch.core import obs
+
+    if pallas:
+        monkeypatch.setenv("AUTOSAGE_PROBE_PALLAS", "1")
+    else:
+        monkeypatch.delenv("AUTOSAGE_PROBE_PALLAS", raising=False)
+    csr = hub_skew(300, 4, 0.1, 20, seed=0).dedup_edges()
+    jcsr = jx_hub_skew(300, 4, 0.1, 20, seed=0).dedup_edges()
+    feat = InputFeatures.from_csr(csr, 32, "csr_attention")
+    pool = registry.candidates(feat, HardwareSpec.cpu(), CPU)
+    jx_pool = jx_registry.candidates(_jx_feat(feat), JxHw.cpu(), include_pallas=pallas)
+    assert [(registry.PORTED_FROM[v.name], v.knobs, v.is_baseline) for v in pool] == [
+        (v.name, v.knobs, v.is_baseline) for v in jx_pool]
+    assert len(pool) == (6 if pallas else 4)
+    for v, twin in zip(pool, jx_pool):
+        with pytest.raises(KeyError):
+            est.estimate(feat, HardwareSpec.cpu(), v.name, v.knobs)
+        with pytest.raises(KeyError):
+            jx_est.estimate(_jx_feat(feat), JxHw.cpu(), twin.name, twin.knobs)
+    labels = dict(op="csr_attention", scheduler="exact", tier="fault")
+    before, jbefore = (obs.REGISTRY.total("autosage_decides_total", **labels),
+                       jx_obs.REGISTRY.total("autosage_decides_total", **labels))
+    sage = AutoSage(cache=ScheduleCache(path=None), device="cpu", probe_iters=1,
+                    probe_cap_ms=50)
+    jsage = JxSage(cache=JxCache(path=None), probe_iters=1, probe_cap_ms=50)
+    d, jd = sage.decide(csr, 32, "csr_attention"), jsage.decide(jcsr, 32, "csr_attention")
+    assert (d.choice, d.estimates_ms, d.from_cache) == (jd.choice, jd.estimates_ms,
+                                                        jd.from_cache) == ("baseline", {},
+                                                                           False)
+    assert d.variant.full_name() == jd.variant.full_name() == \
+        "pipe[sddmm=gather_dot,spmm=gather_segsum]"
+    assert obs.REGISTRY.total("autosage_decides_total", **labels) == before + 1
+    assert jx_obs.REGISTRY.total("autosage_decides_total", **labels) == jbefore + 1
+    assert len(sage.cache) == len(jsage.cache) == 0
+    q, k, v = (torch.from_numpy(np.random.default_rng(i).standard_normal(
+        (csr.n_rows, 32)).astype(np.float32)) for i in range(3))
+    out = sage.build_runner(csr, d)(q, k, v)
+    want = jx_ref.csr_attention_ref(csr.rowptr, csr.colind, *(x.numpy() for x in (q, k, v)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_legacy_csr_attention_pinned_fused_entry_replays(tmp_path, probe_kernels):
+    """A cache entry under a legacy key that pins a fused kernel is
+    constructible: replay serves it and its runner matches the oracle
+    (the plain version here; the CUDA kernel on the card)."""
+    csr = hub_skew(300, 4, 0.1, 20, seed=0).dedup_edges()
+    feat = InputFeatures.from_csr(csr, 32, "csr_attention")
+    name = next(v.full_name() for v in registry.candidates(feat, HardwareSpec.cpu(), CPU)
+                if v.name == "ragged_attention_cuda")
+    path = str(tmp_path / "legacy.json")
+    from repro_torch.core import device_sig
+
+    ScheduleCache(path=path).put(
+        ScheduleCache.key(device_sig(CPU), feat.graph_sig, 32, "csr_attention", 0.95),
+        {"choice": name, "probe_ms": {}, "estimates_ms": {}})
+    replay = _sage(path, replay_only=True)
+    d = replay.decide(csr, 32, "csr_attention")
+    assert d.from_cache and d.choice == name and d.variant.name == "ragged_attention_cuda"
+    q, k, v = (torch.from_numpy(np.random.default_rng(i).standard_normal(
+        (csr.n_rows, 32)).astype(np.float32)) for i in range(3))
+    want = jx_ref.csr_attention_ref(csr.rowptr, csr.colind, *(x.numpy() for x in (q, k, v)))
+    np.testing.assert_allclose(replay.build_runner(csr, d)(q, k, v).numpy(), np.asarray(want),
+                               rtol=1e-4, atol=1e-4)
