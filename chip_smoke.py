@@ -184,17 +184,58 @@ order; any failure raises and the script exits non-zero:
    Phases 3 and 6 also time the warm SAGE and GAT forwards through two
    replay-only AutoSage instances built with AUTOSAGE_RESILIENCE=0 (raw
    runners) and =1 (the chain), side by side, outside the counted runs.
+13. Serving (launch/serve.py), with AUTOSAGE_OBS=1 and AUTOSAGE_OBS_DIR
+   and AUTOSAGE_TELEMETRY_DIR in the phase's directory (restored after
+   it); the metrics registry is cleared first, so its counters are phase
+   13's alone:
+   a. benchmarks/tables.py serve_smoke's contract at F = 256: its four
+      parent regimes (launch.serve._serve_parents(2048, 4)), 48 sampled
+      subgraphs of 256 rows, 3 client threads, 2 passes,
+      AUTOSAGE_SERVE_BUDGET_MS=250, AutoSage(probe_iters=1,
+      probe_cap_ms=25, probe_frac=0.25), BatchScheduler(probe_budget_ms=
+      10,000) behind a GNNServer whose background worker probes; then a
+      replay-only server over the same stream. Gates: no stall and no
+      cold request, p99 decision latency under the budget, at least one
+      upgrade and one bucket provisional in pass 1 and warm in pass 2;
+      the replay runs no probe, serves every request warm, and each
+      choice equals the bucket's final one.
+   b. Full width: four client threads, two passes and a replay pass of
+      40 requests each: 16 SpMM requests on 1,024-row sub-adjacencies of
+      Reddit-0.25 (train_gnn.minibatch_rows, seed 1, normalized as phase
+      11's), 16 on products_like(0.02) (seed 2), both at F = 256 with one
+      shared B each, and 8 attention requests on
+      sliding_window_csr(16384, 16384, W, n_global=4), W = 256 and 512,
+      four each, D = 128 (configs/qwen3_14b's head dimension). Each
+      client submits, runs the served decision on the request's operands
+      and the output is held against ref.spmm_ref / ref.csr_attention_ref
+      (same tolerance); the replay's outputs equal pass 2's bit for bit
+      where the choice is the same. Logged: tiers, decision latency
+      percentiles against the default 50 ms budget (measured, not
+      gated), upgrades, each bucket's final choice and probe ms, the
+      launches of each pass. Gates: no stall, no cold request, the serve
+      probe-error and upgrade-callback-error counters, faults and
+      fallbacks all 0, the replay probe-free and warm, and at least one
+      bucket upgraded to a CUDA kernel family whose kernel launched in
+      pass 2.
+   c. obs.flush() writes spans.jsonl, trace_<pid>.json and
+      metrics_<pid>.{prom,json}; `python -m repro_torch.obs_cli
+      export-trace` merges them into one Chrome trace holding decide,
+      probe and run spans; `obs_cli summary` prints the serve counters;
+      `obs_cli explain` prints an attention bucket's narrative; and
+      serve_events.jsonl holds one request record per request served, at
+      least one upgrade and one summary.
 
 The main path is every forward of phases 3, 4 and 6, every training
-step of phases 8, 9 and 11, the ops chain of phase 10 and the runner
-calls of phases 12a-c, through the entry points a user calls: decide
+step of phases 8, 9 and 11, the ops chain of phase 10, the runner
+calls of phases 12a-c and the served runs of phase 13b (background
+probes included), through the entry points a user calls: decide
 (probes included) + two forwards or the training steps, the replay run,
 and each pinned run. The launch counters of every kernel are set to 0
 just before each of these runs and read just after it; a kernel's
 ``launches`` is the sum over them, and every kernel must have launched.
 Resilience is on (the default) throughout: after each of phases 2-11
-the smoke reads autosage_faults_total and autosage_fallback_total and
-fails unless both are 0, so no kernel of the main path hid behind a
+and 13 the smoke reads autosage_faults_total and autosage_fallback_total
+and fails unless both are 0, so no kernel of the main path hid behind a
 fallback. The host/device breakdown of a warm forward is timed outside
 these runs and is not counted. Peak device memory is printed per phase.
 The second-to-last line is the kernels JSON, the last line the result
@@ -2531,8 +2572,312 @@ def fleet_cross_device_phase(graph, dedup, device, workdir: Path) -> dict:
     return totals
 
 
+# ----------------------------------------------------------- phase 13
+SERVE_F = 256  # configs/gnn_sage width
+SERVE_CLIENTS = 4
+SERVE_SPMM_REQUESTS = 16  # per graph and pass
+SERVE_CTX = 16384  # window + sink attention: queries = keys
+SERVE_WINDOWS = (256, 512)
+SERVE_SINKS = 4
+SERVE_ATTN_REQUESTS = 4  # per window and pass
+D_HEAD = 128  # configs/qwen3_14b head dimension
+SERVE_PROBE_BUDGET_MS = 60_000.0
+SERVE_DRAIN_S = 120.0
+# benchmarks/tables.py serve_smoke: its four parent regimes, 48 sampled
+# subgraphs of 256 rows, 3 clients, a 250 ms budget
+SMOKE_PARENT_ROWS = 2048
+SMOKE_REQUESTS = 48
+SMOKE_ROWS = 256
+SERVE_COUNTERS = ("autosage_serve_probe_errors_total", "autosage_serve_upgrade_cb_errors_total",
+                  *FAULT_COUNTERS)
+
+
+def _serve_clients(server, requests, n_clients, run=False):
+    """Stride-partition ``requests`` ((csr, f, op, operands), ...) across
+    ``n_clients`` threads submitting into one server; with ``run`` each
+    client also runs the served decision on the request's operands.
+    Returns (results, outputs) by request index; re-raises the first
+    exception of a client."""
+    import threading
+
+    results, outs, errors = [None] * len(requests), [None] * len(requests), []
+
+    def client(cid):
+        try:
+            for i in range(cid, len(requests), n_clients):
+                g, f, op, operands = requests[i]
+                results[i] = server.submit(g, f, op)
+                if run:
+                    outs[i] = server.run(g, results[i].decision)(*operands)
+        except BaseException as exc:  # noqa: BLE001 - re-raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(c,), name=f"client-{c}")
+               for c in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return results, outs
+
+
+def _latency(results) -> str:
+    """Nearest-rank p50 / p99 / max decision latency, as serve_stats."""
+    lat = sorted(r.latency_ms for r in results)
+
+    def q(p):
+        return lat[min(int(p * len(lat)), len(lat) - 1)]
+
+    return f"p50 {q(0.5):.3f} ms, p99 {q(0.99):.3f} ms, max {lat[-1]:.3f} ms"
+
+
+def serve_contract_phase(device, workdir: Path) -> int:
+    """13a: benchmarks/tables.py serve_smoke's contract at F = 256.
+    Returns the requests served."""
+    from repro_torch.core import AutoSage, BatchScheduler, ScheduleCache
+    from repro_torch.launch.serve import GNNServer, _serve_parents
+    from repro_torch.sparse import sample_subgraph_stream
+
+    stream = sample_subgraph_stream(_serve_parents(SMOKE_PARENT_ROWS, 4), SMOKE_REQUESTS,
+                                    rows_per_graph=SMOKE_ROWS, seed=3)
+    requests = [(g, SERVE_F, "spmm", ()) for g in stream]
+    path = str(workdir / "serve_smoke.json")
+    with env(AUTOSAGE_SERVE_BUDGET_MS="250"):
+        bs = BatchScheduler(AutoSage(device=device, cache=ScheduleCache(path=path),
+                                     probe_iters=1, probe_cap_ms=25, probe_frac=0.25),
+                            probe_budget_ms=10_000)
+        server = GNNServer(bs)
+        pass1, _ = _serve_clients(server, requests, 3)
+        if not server.drain(timeout_s=SERVE_DRAIN_S):
+            raise AssertionError("13a: the background prober never drained")
+        pass2, _ = _serve_clients(server, requests, 3)
+        stats = server.close()
+    finals = {r["bucket"]: r["choice"] for r in bs.bucket_stats()}
+    rbs = BatchScheduler(AutoSage(device=device, cache=ScheduleCache(path=path, replay_only=True)))
+    rserver = GNNServer(rbs)
+    replayed = [rserver.submit(g, SERVE_F, "spmm") for g in stream]
+    rstats = rserver.close(finalize=False)
+    prov = {r.bucket for r in pass1 if r.tier == "provisional"}
+    warm2 = {r.bucket for r in pass2 if r.tier == "warm"}
+    log(f"13a serve_smoke contract ({len(stream)} subgraphs of {SMOKE_ROWS} rows, 3 clients, "
+        f"F = {SERVE_F}, budget {stats['budget_ms']:.0f} ms): tiers "
+        f"{json.dumps(stats['by_tier'])}, "
+        f"stalls {stats['stalls']}, upgrades {stats['upgrades']}, buckets {stats['buckets']}; "
+        f"decision latency p50 {stats['p50_ms']:.3f} ms, p99 {stats['p99_ms']:.3f} ms, max "
+        f"{stats['max_ms']:.3f} ms; provisional in pass 1 and warm in pass 2: {len(prov & warm2)} "
+        f"buckets; final choices {json.dumps(finals)}; replay probes "
+        f"{rbs.stats()['probes_run']}, replay latency p99 {rstats['p99_ms']:.3f} ms")
+    if stats["stalls"] or stats["by_tier"].get("cold", 0):
+        raise AssertionError(f"13a: a request paid a probe inline: {stats}")
+    if not stats["p99_ms"] < stats["budget_ms"]:
+        raise AssertionError(f"13a: p99 decision latency over the budget: {stats}")
+    if stats["upgrades"] < 1 or not prov & warm2:
+        raise AssertionError(f"13a: no bucket upgraded in place: {stats}, {prov}, {warm2}")
+    if (rbs.stats()["probes_run"] or any(r.tier != "warm" for r in replayed)
+            or any(r.decision.choice != finals[r.bucket] for r in replayed)):
+        raise AssertionError(f"13a: the replay differs: {rbs.stats()}, "
+                             f"{[(r.tier, r.decision.choice) for r in replayed]}")
+    return stats["requests"] + rstats["requests"]
+
+
+def _serve_requests(graph, device):
+    """13b's 40 requests per pass, interleaved so every client serves each
+    kind: 16 SpMM requests on 1,024-row sub-adjacencies of ``graph`` and 16
+    of products_like(0.02) at F = 256 (one shared B each), 8 attention
+    requests on window + sink CSRs (D = 128, one shared q, k, v)."""
+    import itertools
+
+    import torch
+
+    from repro_torch.models.gnn import norm_csr
+    from repro_torch.sparse import products_like, sliding_window_csr
+    from repro_torch.train_gnn import minibatch_rows
+
+    gen = torch.Generator().manual_seed(31)
+    kinds = []
+    for parent, seed in ((graph, 1), (products_like(PRODUCTS_SCALE, seed=0), 2)):
+        b = torch.randn(parent.n_cols, SERVE_F, generator=gen).to(device)
+        rows = minibatch_rows(parent.n_rows, MINIBATCH, SERVE_SPMM_REQUESTS, seed=seed)
+        kinds.append([(norm_csr(parent.row_slice(r)), SERVE_F, "spmm", (b,)) for r in rows])
+    qkv = tuple(torch.randn(SERVE_CTX, D_HEAD, generator=gen).to(device) for _ in range(3))
+    windows = [sliding_window_csr(SERVE_CTX, SERVE_CTX, w, n_global=SERVE_SINKS)
+               for w in SERVE_WINDOWS]
+    kinds.append([(g, D_HEAD, "attention", qkv) for g in windows
+                  for _ in range(SERVE_ATTN_REQUESTS)])
+    return [r for group in itertools.zip_longest(*kinds) for r in group if r is not None]
+
+
+def _served_kernel(choice):
+    family = choice.split("[")[0]
+    return FAMILY_KERNEL.get(family) or ATTN_FAMILY_KERNEL.get(family)
+
+
+def serve_full_width_phase(graph, device, workdir: Path, totals: dict) -> tuple:
+    """13b: four clients, two passes and a replay pass of 40 requests
+    each; every request runs its served decision and is held against the
+    oracle. Returns (requests served, an attention bucket's cache key,
+    the cache path)."""
+    from repro_torch.core import AutoSage, BatchScheduler, ScheduleCache, obs, resilience
+    from repro_torch.launch.serve import GNNServer
+
+    t0 = time.perf_counter()
+    requests = _serve_requests(graph, device)
+    wants = {}
+    for g, _, op, operands in requests:
+        if id(g) not in wants:
+            wants[id(g)] = resilience.reference_runner(g, op, device)(*operands)
+    sync(device)
+    shapes = sorted({(g.n_rows, g.n_cols, op) for g, _, op, _ in requests})
+    log(f"13b: {len(requests)} requests per pass over {len(wants)} graphs "
+        f"({', '.join(f'{op} {n} x {m}' for n, m, op in shapes[:1] + shapes[-2:])}, ...), "
+        f"edges {min(g.nnz for g, *_ in requests)}-{max(g.nnz for g, *_ in requests)}; "
+        f"oracles {time.perf_counter() - t0:.1f} s")
+    path = str(workdir / "serve.json")
+    bs = BatchScheduler(AutoSage(device=device, cache=ScheduleCache(path=path), probe_iters=2,
+                                 probe_cap_ms=200, probe_frac=0.25),
+                        probe_budget_ms=SERVE_PROBE_BUDGET_MS)
+    server = GNNServer(bs)
+    passes = {}
+
+    def serve(label, srv, drain=False):
+        t0 = time.perf_counter()
+        res, outs = _serve_clients(srv, requests, SERVE_CLIENTS, run=True)
+        t1 = time.perf_counter()
+        if drain and not srv.drain(timeout_s=SERVE_DRAIN_S):
+            raise AssertionError(f"13b {label}: the background prober never drained: "
+                                 f"{json.dumps(srv.bs.stats())}; {srv.bs.bucket_stats()}")
+        sync(device)
+        if drain:
+            log(f"13b {label}: requests served in {t1 - t0:.1f} s, drained "
+                f"{time.perf_counter() - t1:.1f} s later; {json.dumps(srv.bs.stats())}")
+        passes[label] = (res, outs)
+        tiers = {t: sum(r.tier == t for r in res) for t in sorted({r.tier for r in res})}
+        log(f"13b {label}: {time.perf_counter() - t0:.1f} s; tiers {json.dumps(tiers)}; "
+            f"decision latency {_latency(res)}")
+
+    _, got1 = counted("13b pass 1", lambda: serve("pass 1", server, drain=True), totals, device)
+    _, got2 = counted("13b pass 2", lambda: serve("pass 2", server), totals, device)
+    stats = server.close()
+    finals = {(st.bucket.op, st.bucket.sig()): st for st in bs._buckets.values()}
+    for st in finals.values():
+        d = st.current()
+        log(f"13b bucket {st.bucket.op} {st.bucket.sig()}: hits {st.hits}, final {d.choice}, "
+            f"probe charge {st.probe_charge_ms:.1f} ms, probe ms {json.dumps(d.probe_ms)}")
+    for ev in server.upgrade_events:
+        log(f"13b upgrade: {ev['op']} {ev['bucket']} -> {ev['choice']} "
+            f"(probe {ev['probe_overhead_ms']:.1f} ms)")
+    rbs = BatchScheduler(AutoSage(device=device,
+                                  cache=ScheduleCache(path=path, replay_only=True)))
+    rserver = GNNServer(rbs)
+    _, got3 = counted("13b replay pass", lambda: serve("replay", rserver), totals, device)
+    rstats = rserver.close(finalize=False)
+    keys = ("requests", "by_tier", "stalls", "over_budget", "upgrades", "budget_ms", "p50_ms",
+            "p99_ms", "max_ms", "buckets")
+    log(f"13b session: {json.dumps({k: stats[k] for k in keys})}")
+
+    errs = []
+    for label, (res, outs) in passes.items():
+        for i, ((g, _, op, _), r, out) in enumerate(zip(requests, res, outs)):
+            errs.append(check_close(f"13b {label} request {i} ({op}, {r.decision.choice})",
+                                    out, wants[id(g)]))
+    rres, routs = passes["replay"]
+    for i, (r2, r3) in enumerate(zip(passes["pass 2"][0], rres)):
+        st = finals[(requests[i][2], r3.bucket)]
+        if r3.tier != "warm" or r3.decision.choice != st.current().choice:
+            raise AssertionError(f"13b replay request {i}: {r3.tier} {r3.decision.choice}, "
+                                 f"final {st.current().choice}")
+        if r2.decision.choice == r3.decision.choice:
+            check_equal(f"13b replay request {i} vs pass 2", routs[i], passes["pass 2"][1][i])
+    counters = {n: obs.REGISTRY.total(n) for n in SERVE_COUNTERS}
+    served = [(ev["choice"], _served_kernel(ev["choice"])) for ev in server.upgrade_events]
+    carried = sorted({c for c, k in served if k is not None and got2.get(k, 0) > 0})
+    log(f"13b: max |served - oracle| {max(errs):.3e} over {len(errs)} runs; replay probes "
+        f"{rbs.stats()['probes_run']}, outputs bit-equal to pass 2; counters "
+        f"{json.dumps(counters)}; upgraded to a CUDA family that launched in pass 2: {carried}")
+    for s in (stats, rstats):
+        if s["stalls"] or s["by_tier"].get("cold", 0):
+            raise AssertionError(f"13b: a request paid a probe inline: {s}")
+    if any(counters.values()) or rbs.stats()["probes_run"]:
+        raise AssertionError(f"13b: {counters}, replay {rbs.stats()}")
+    if not carried:
+        raise AssertionError(f"13b: no bucket upgraded to a CUDA family that launched in "
+                             f"pass 2: upgrades {served}, pass 2 launches {got2}")
+    attn = [st for st in finals.values() if st.bucket.op == "attention"]
+    return stats["requests"] + rstats["requests"], attn[0].key, path
+
+
+def serve_artifacts_phase(workdir: Path, attn_key: str, cache_path: str,
+                          n_requests: int) -> None:
+    """13c: the flight recorder's files, the obs_cli commands over them,
+    and serve_events.jsonl."""
+    obs_dir, merged = workdir / "obs", workdir / "merged_trace.json"
+    cli = [sys.executable, "-m", "repro_torch.obs_cli"]
+    rc, out, err = _run_cmd(cli + ["export-trace", "--obs", str(obs_dir), "--out", str(merged)],
+                            120)
+    trace = json.loads(merged.read_text()) if rc == 0 else {}
+    names = {e["name"] for e in trace.get("traceEvents", [])}
+    log(f"13c export-trace (rc {rc}): {out.strip()}; span names {sorted(names)}")
+    if rc != 0 or not {"decide", "probe", "run"} <= names:
+        raise AssertionError(f"13c export-trace: rc {rc}, names {sorted(names)}\n{err[-2000:]}")
+    rc, out, err = _run_cmd(cli + ["summary", "--obs", str(obs_dir)], 120)
+    log("13c obs_cli summary:\n" + "\n".join(
+        ln for ln in out.splitlines() if "serve" in ln or ln.startswith("==") or "stall" in ln))
+    if rc != 0 or "autosage_serve_requests_total" not in out:
+        raise AssertionError(f"13c summary: rc {rc}\n{out[-2000:]}\n{err[-2000:]}")
+    rc, out, err = _run_cmd(cli + ["explain", attn_key, "--cache", cache_path,
+                                   "--telemetry", str(workdir)], 120)
+    log(f"13c obs_cli explain {attn_key}:\n{out.rstrip()}")
+    if rc != 0 or "pinned choice:" not in out or "live statistics" not in out:
+        raise AssertionError(f"13c explain: rc {rc}\n{err[-2000:]}")
+    events = [json.loads(ln) for ln in (workdir / "serve_events.jsonl").read_text().splitlines()]
+    kinds = {k: sum(e["event"] == k for e in events) for k in ("request", "upgrade", "summary")}
+    log(f"13c serve_events.jsonl: {json.dumps(kinds)} ({n_requests} requests served)")
+    if kinds["request"] != n_requests or kinds["upgrade"] < 1 or kinds["summary"] < 1:
+        raise AssertionError(f"13c serve_events.jsonl: {kinds}, {n_requests} requests")
+
+
+def serve_phase(graph, device, workdir: Path) -> dict:
+    """Phase 13. Returns the launch counts summed over its counted runs."""
+    from repro_torch.core import obs, telemetry
+
+    obs.reset()  # phase 13's counters alone: phase 12 injected faults
+    sdir = workdir / "serve"
+    totals: dict = {}
+    try:
+        with env(AUTOSAGE_OBS="1", AUTOSAGE_OBS_DIR=str(sdir / "obs"),
+                 AUTOSAGE_TELEMETRY_DIR=str(sdir)):
+            t0 = time.perf_counter()
+            n_requests = serve_contract_phase(device, sdir)
+            log(f"== phase 13a (serve_smoke contract): {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            n, attn_key, cache_path = serve_full_width_phase(graph, device, sdir, totals)
+            n_requests += n
+            log(f"== phase 13b (full-width serving): {time.perf_counter() - t0:.1f} s")
+            paths = obs.flush()
+            log(f"13c flush: {json.dumps(sorted(Path(p).name for p in paths.values()))}")
+            if {"spans", "trace", "prom", "metrics"} - set(paths) or not all(
+                    Path(p).is_file() for p in paths.values()):
+                raise AssertionError(f"13c flush wrote {paths}")
+        telemetry.close_streams()
+        t0 = time.perf_counter()
+        serve_artifacts_phase(sdir, attn_key, cache_path, n_requests)
+        log(f"== phase 13c (artifacts): {time.perf_counter() - t0:.1f} s")
+        counts = fault_counts()
+        if any(counts.values()):
+            raise AssertionError(f"phase 13: a fault or fallback: {counts}")
+    finally:
+        # no span may outlive the temporary directory: the recorder's
+        # atexit flush would write them back into it
+        telemetry.close_streams()
+        obs.reset()
+    log(f"phase 13 launches (sum of the counted runs): {json.dumps(totals)}")
+    return totals
+
+
 def run(device, scale: float = SCALE, reps: int = 5) -> list:
-    """Phases 2-12 on ``device``; returns the kernels records."""
+    """Phases 2-13 on ``device``; returns the kernels records."""
     from repro_torch.core import registry
     from repro_torch.models.gnn import norm_csr
     from repro_torch.sparse import reddit_like
@@ -2594,6 +2939,7 @@ def run(device, scale: float = SCALE, reps: int = 5) -> list:
                           work))
         add(counts, phase("phase 12 (fleet and cross-device)", fleet_cross_device_phase, graph,
                           dedup, device, work, faults_ok=True))
+        add(counts, phase("phase 13 (serving)", serve_phase, graph, device, work))
     log(f"main-path launches (sum of the counted runs): {json.dumps(counts)}")
     missing = [name for name in records if counts.get(name, 0) == 0]
     if missing:

@@ -42,10 +42,11 @@ feature regimes:
 Entry points mirror `AutoSage` (`decide`, `build_runner`, `spmm`,
 `sddmm`, `attention`), so model code written against `AutoSage`
 (models/gnn.py, core/autodiff.py) takes a `BatchScheduler` unchanged.
-The serving tier's upgrade callback (`on_upgrade`) is not ported yet. A
-cached choice this process cannot construct raises `ReplayMiss` in
-replay mode (the JAX package serves the baseline under its name) and is
-re-probed otherwise.
+The serving tier (launch/serve.py) runs it with ``auto_pump=False``,
+pumps on a background worker and hears of every in-place upgrade
+through `on_upgrade`. A cached choice this process cannot construct
+raises `ReplayMiss` in replay mode (the JAX package serves the baseline
+under its name) and is re-probed otherwise.
 """
 from __future__ import annotations
 
@@ -89,6 +90,18 @@ DEFAULT_DRIFT_DECAY = float(os.environ.get("AUTOSAGE_DRIFT_DECAY", "0.5"))
 DEFAULT_DRIFT_WASTE_DELTA = float(
     os.environ.get("AUTOSAGE_DRIFT_WASTE_DELTA", "0.25")
 )
+
+
+def _attention_family(choice: Optional[str]) -> str:
+    """Coarse family of an attention choice for flip telemetry: fused or
+    composed, not which layout pair won."""
+    if choice is None:
+        return "none"
+    if choice == "baseline":
+        return "baseline"
+    if "attention" in choice:  # fused_attention_cuda / ragged_attention_cuda
+        return "fused"
+    return "composed"  # pipe[sddmm=...,spmm=...]
 
 
 @dataclasses.dataclass
@@ -181,8 +194,12 @@ class BatchScheduler:
         self.drift_waste_delta = DEFAULT_DRIFT_WASTE_DELTA
         self._device = device_sig(self.sage.device)
         self._lock = threading.RLock()
-        # per-decide results (last_bucket, last_source) belong to the
-        # deciding thread
+        # upgrade notification: called outside every lock with the probe
+        # event dict each time a bucket's decision upgrades in place (the
+        # serving tier counts and announces background upgrades with it)
+        self.on_upgrade: Optional[Callable[[Dict[str, Any]], None]] = None
+        # per-decide results (last_bucket, last_source,
+        # last_inline_probes) belong to the deciding thread
         self._decide_tls = threading.local()
         self._buckets: Dict[str, _BucketState] = {}
         # observe() routing, keyed by the full bucket: sig() omits op, F
@@ -218,6 +235,13 @@ class BatchScheduler:
         "drift-pending" | "provisional"."""
         return getattr(self._decide_tls, "source", None)
 
+    @property
+    def last_inline_probes(self) -> int:
+        """Bucket probes the calling thread's last decide ran inline
+        (always 0 with auto_pump=False): the serving tier's stall
+        detector reads it."""
+        return getattr(self._decide_tls, "inline_probes", 0)
+
     def _emit(self, event: Dict[str, Any]) -> None:
         telemetry.emit_batch_event(event, self.sage.device)
 
@@ -251,9 +275,12 @@ class BatchScheduler:
                 self._decide_tls.bucket = bucket
                 self._check_waste_drift(st, feat)
                 self._check_fault_retire(st)
-            # probing runs outside the state lock
+            # probing runs outside the state lock; set on every path, so
+            # a warm decide never reads a previous request's count
+            inline_probes = 0
             if self.auto_pump and not self.cache.replay_only:
-                self.pump(self.max_probes_per_decide)
+                inline_probes = self.pump(self.max_probes_per_decide)
+            self._decide_tls.inline_probes = inline_probes
             with self._lock:
                 d = st.current()
                 if st.probed and st.decision is not None and st.decision.from_cache:
@@ -523,7 +550,18 @@ class BatchScheduler:
         if was_drift:
             event.update(old_choice=old_choice, flipped=flipped, reason=st.drift_reason,
                          reprobes=st.reprobes)
+            if st.rep_feat.op == "attention":
+                # fused <-> composed is the regime signal for attention
+                event.update(old_family=_attention_family(old_choice),
+                             new_family=_attention_family(d.choice))
         self._emit(event)
+        if self.on_upgrade is not None:
+            # outside every lock: the callback may emit telemetry or bump
+            # metrics and must never be able to deadlock a decide
+            try:
+                self.on_upgrade(dict(event))
+            except Exception:  # noqa: BLE001 - counted; the upgrade stands
+                obs.REGISTRY.inc("autosage_serve_upgrade_cb_errors_total")
 
     # ------------------------------------------------- online statistics
     def bucket_of(self, csr: CSR, f: int, op: str) -> ScheduleBucket:

@@ -47,6 +47,7 @@ import collections
 import dataclasses
 import hashlib
 import os
+import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -125,6 +126,8 @@ class Variant:
 
 # ------------------------------------------------- host layout memo
 _LAYOUTS: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
+# held across a build: concurrent callers of one key build it once
+_LAYOUTS_LOCK = threading.Lock()
 LAYOUT_MEMO_CAP = 4  # entries; one is ~5.4 GB at Reddit-0.25, 8x8
 # smaller graphs convert in well under a second and stay out of the
 # memo, so the probes' induced subgraphs never evict a full graph
@@ -145,17 +148,19 @@ def ragged_layout(csr: CSR, rb: int, bc: int) -> Tuple[RaggedBlockELL, float, Di
     if csr.nnz < LAYOUT_MEMO_MIN_NNZ:
         return csr_to_ragged(csr, rb, bc)
     key = (graph_signature(csr), _values_key(csr), rb, bc)
-    hit = _LAYOUTS.pop(key, None)
-    if hit is None:
-        hit = csr_to_ragged(csr, rb, bc)
-        while len(_LAYOUTS) >= max(LAYOUT_MEMO_CAP, 1):
-            _LAYOUTS.popitem(last=False)
-    _LAYOUTS[key] = hit
+    with _LAYOUTS_LOCK:
+        hit = _LAYOUTS.pop(key, None)
+        if hit is None:
+            hit = csr_to_ragged(csr, rb, bc)
+            while len(_LAYOUTS) >= max(LAYOUT_MEMO_CAP, 1):
+                _LAYOUTS.popitem(last=False)
+        _LAYOUTS[key] = hit
     return hit
 
 
 def clear_layout_memo() -> None:
-    _LAYOUTS.clear()
+    with _LAYOUTS_LOCK:
+        _LAYOUTS.clear()
 
 
 def _mask_of(tiles: np.ndarray) -> np.ndarray:

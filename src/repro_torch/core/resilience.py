@@ -657,6 +657,8 @@ def chain_runner(
     sticky CUDA error; on a card, any real fault) re-raises at once."""
 
     state: Dict[str, Any] = {"dead": set(), "runners": {}}
+    # threads that call one runner at once build each stage once
+    build_lock = threading.Lock()
 
     def run(*args):
         last_exc: Optional[BaseException] = None
@@ -673,14 +675,16 @@ def chain_runner(
             site = "prepare" if runner is None else "run"
             try:
                 if runner is None:
-                    if injectable:
-                        runner = retry_call(
-                            lambda: build(args), "prepare", name=name, op=op,
-                            device=device,
-                        )
-                    else:
-                        runner = build(args)
-                    state["runners"][name] = runner
+                    with build_lock:
+                        runner = state["runners"].get(name)
+                        if runner is None and injectable:
+                            runner = retry_call(
+                                lambda: build(args), "prepare", name=name, op=op,
+                                device=device,
+                            )
+                        elif runner is None:
+                            runner = build(args)
+                        state["runners"][name] = runner
                 if injectable:
 
                     def attempt(_r=runner, _n=name):

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -199,6 +200,9 @@ class AutoSage:
         # plus an upload, paid once per (graph, op, choice)
         self._runners: Dict[tuple, Callable] = {}
         self._runner_cap = int(os.environ.get("AUTOSAGE_RUNNER_CACHE", "64"))
+        # serving threads build runners at once: one build per key, and
+        # no thread evicts a key another is popping
+        self._runners_lock = threading.RLock()
         # per-(candidate, device) circuit breaker (core/resilience.py): its
         # quarantine records persist through the cache, so fleet workers
         # share the blacklist
@@ -506,15 +510,16 @@ class AutoSage:
         degrades instead of failing the call, and its failures feed the
         breaker (core/resilience.py)."""
         key = (graph_signature(csr), decision.op, decision.choice)
-        runner = self._runners.pop(key, None)
-        if runner is None:
-            if resilience.enabled():
-                runner = self._build_chain(csr, decision, graph_sig=key[0])
-            else:
-                runner = _build_raw(csr, decision, key[0], self.device)
-            while len(self._runners) >= max(self._runner_cap, 1):
-                self._runners.pop(next(iter(self._runners)))
-        self._runners[key] = runner  # (re)insert at MRU position
+        with self._runners_lock:
+            runner = self._runners.pop(key, None)
+            if runner is None:
+                if resilience.enabled():
+                    runner = self._build_chain(csr, decision, graph_sig=key[0])
+                else:
+                    runner = _build_raw(csr, decision, key[0], self.device)
+                while len(self._runners) >= max(self._runner_cap, 1):
+                    self._runners.pop(next(iter(self._runners)))
+            self._runners[key] = runner  # (re)insert at MRU position
         return runner
 
     def _build_chain(self, csr: CSR, decision: Decision, graph_sig: str) -> Callable:

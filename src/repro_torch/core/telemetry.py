@@ -1,10 +1,10 @@
 """CSV + JSON telemetry (paper §10: every CSV gets a .meta.json sidecar
 with device, software versions, and the AUTOSAGE_* env snapshot).
 
-Port of repro/core/telemetry.py for the SpMM, attention, batch and
-fleet slices: the CSV writer, the per-op decide/prepare stream (with the
-transfer provenance of transferred decisions), the attention-decision
-stream, the batch-scheduler stream and the resilience layer's fault
+Port of repro/core/telemetry.py: the CSV writer, the per-op
+decide/prepare stream (with the transfer provenance of transferred
+decisions), the attention-decision stream, the batch-scheduler stream,
+the resilience layer's fault stream and the serving tier's request
 stream. JSONL streams
 keep one unbuffered O_APPEND handle per process and write every record
 as one write() of one full line, so concurrent writer processes
@@ -206,5 +206,22 @@ def emit_batch_event(event: Dict, device: torch.device) -> Optional[str]:
     if not out:
         return None
     path = str(Path(out) / "batch_stream.jsonl")
+    append_jsonl(path, event, device)
+    return path
+
+
+def emit_serve_event(event: Dict, device: Optional[torch.device] = None) -> Optional[str]:
+    """Online-serving stream (serve_events.jsonl): per-request records
+    (tier, bucket, decision latency), background bucket upgrades and
+    session summaries from the serving tier (launch/serve.py). Client
+    threads and the probe worker share the stream; each record is one
+    whole-line append.
+
+    No-op unless AUTOSAGE_TELEMETRY_DIR is set: the request path touches
+    no file by default. Returns the path written."""
+    out = os.environ.get("AUTOSAGE_TELEMETRY_DIR")
+    if not out:
+        return None
+    path = str(Path(out) / "serve_events.jsonl")
     append_jsonl(path, event, device)
     return path

@@ -19,6 +19,7 @@ from repro_torch.sparse.generators import (
     regime_shift_stream,
     sample_subgraph_stream,
     single_hub,
+    sliding_window_csr,
     table10_graph,
 )
 
@@ -44,5 +45,6 @@ __all__ = [
     "regime_shift_stream",
     "sample_subgraph_stream",
     "single_hub",
+    "sliding_window_csr",
     "table10_graph",
 ]

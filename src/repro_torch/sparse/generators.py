@@ -204,3 +204,31 @@ def regime_shift_stream(
         )
         out.append(parent.row_slice(rows))
     return out
+
+
+def sliding_window_csr(
+    n_q: int, n_k: int, window: int, n_global: int = 0, causal: bool = True
+) -> CSR:
+    """Structured sparsity for CSR attention (long-context decode).
+
+    Row i attends to keys [i+off-window+1, i+off] (causal, off = n_k -
+    n_q) plus the first ``n_global`` sink tokens not already inside the
+    window: window + sink attention over a long context.
+    """
+    off = n_k - n_q
+    qi = np.arange(n_q, dtype=np.int64)
+    hi = np.minimum(qi + off, n_k - 1) if causal else np.full(n_q, n_k - 1)
+    lo = np.maximum(hi - window + 1, 0)
+    win_deg = hi - lo + 1
+    g_extra = np.minimum(n_global, lo)  # sinks not already inside the window
+    deg = win_deg + g_extra
+    rowptr = np.zeros(n_q + 1, dtype=np.int64)
+    np.cumsum(deg, out=rowptr[1:])
+    nnz = int(rowptr[-1])
+    colind = np.empty(nnz, dtype=np.int64)
+    # each row: [0, g_extra) then [lo, hi]
+    within = np.arange(nnz) - np.repeat(rowptr[:-1], deg)
+    is_global = within < np.repeat(g_extra, deg)
+    colind[is_global] = within[is_global]
+    colind[~is_global] = np.repeat(lo - g_extra, deg)[~is_global] + within[~is_global]
+    return CSR(rowptr.astype(np.int32), colind.astype(np.int32), None, n_q, n_k)

@@ -68,6 +68,8 @@ def test_every_slice_module_is_checked():
         "src/repro_torch/core/resilience.py",
         "src/repro_torch/core/transfer.py",
         "src/repro_torch/shared_worker.py",
+        "src/repro_torch/launch/serve.py",
+        "src/repro_torch/obs_cli.py",
         "chip_smoke.py",
     } <= checked
     assert (PORT / "csrc" / "attention.cu").is_file()

@@ -1,6 +1,6 @@
 """repro_torch's resilience layer on the CPU: the twin of
-tests/test_resilience.py (all but the obs_cli explain test, whose CLI is
-not ported yet) and the torch exception taxonomy.
+tests/test_resilience.py (its obs_cli explain test's twin is in
+test_torch_obs.py) and the torch exception taxonomy.
 
 The chaos matrix: under every injected fault class every scheduler
 surface ({AutoSage, BatchScheduler, shared-fleet BatchScheduler} x

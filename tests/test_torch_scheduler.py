@@ -363,6 +363,8 @@ def test_span_totals_split_a_decide(tmp_path, probe_kernels, monkeypatch):
     _sage(str(tmp_path / "off.json")).decide_attention(csr, 16)
     assert obs.span_totals_ms() == before
     monkeypatch.setenv("AUTOSAGE_OBS", "1")
+    # the recorder's exit flush writes the spans recorded here under tmp_path
+    monkeypatch.setenv("AUTOSAGE_OBS_DIR", str(tmp_path / "obs"))
     _sage(str(tmp_path / "on.json")).decide_attention(csr, 16)
     after = obs.span_totals_ms()
     assert {"decide", "features", "estimate", "probe", "guardrail"} <= set(after)

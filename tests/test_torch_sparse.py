@@ -135,3 +135,19 @@ def test_direct_ragged_builder_matches(pair, rb, bc):
         assert np.array_equal(edges["edge_slot"], flat)
         assert np.array_equal(edges["edge_r"], idx["edge_r"])
         assert np.array_equal(edges["edge_c"], idx["edge_c"])
+
+
+@pytest.mark.parametrize("n_q,n_k,window,n_global,causal", [
+    (64, 64, 8, 0, True),
+    (64, 64, 8, 4, True),
+    (40, 200, 16, 3, True),  # decode: queries at the end of a longer context
+    (50, 50, 64, 2, True),  # window wider than the context
+    (30, 90, 12, 5, False),
+    (1, 257, 32, 4, True),
+])
+def test_sliding_window_csr_matches(n_q, n_k, window, n_global, causal):
+    j = jx_gen.sliding_window_csr(n_q, n_k, window, n_global=n_global, causal=causal)
+    p = pt.sliding_window_csr(n_q, n_k, window, n_global=n_global, causal=causal)
+    _assert_same(j, p)
+    assert jx.graph_signature(j) == pt.graph_signature(p)
+    assert not p.has_duplicate_edges()
