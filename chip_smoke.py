@@ -224,6 +224,36 @@ order; any failure raises and the script exits non-zero:
       `obs_cli explain` prints an attention bucket's narrative; and
       serve_events.jsonl holds one request record per request served, at
       least one upgrade and one summary.
+14. LLM serving (models/api.py, train/step.py, demo-lm), fp32, TF32 off;
+   no hand-written kernel is on this path (the JAX LLM stack reaches no
+   Pallas kernel), so it adds no launches and no kernels record:
+   a. configs/qwen3_14b at its published widths, cut to 4 of 40 layers,
+      weights drawn on the card from a seeded generator: api.prefill of
+      8 x 1,024 random tokens (cold, then warm on a fresh cache), then
+      32 greedy api.decode_steps into a cache of 1,056. Every step's
+      logits equal api.forward over the prompt and the tokens so far
+      (teacher forcing) within LM_RTOL; a REPRO_ATTN=chunked prefill of
+      2 x 2,048 (two query chunks) equals the naive one (logits and
+      every k/v row). Printed: prefill ms against its FLOP bound, decode
+      ms/step and tokens/s against the step's byte bound, and a
+      torch.profiler window of 8 decode steps (kernel time, the
+      device's busy share, the top kernels).
+   b. The long_500k shape (batch 1, a 524,288-position fp32 cache) at
+      full width, cut to 2 layers; the cache is filled from a seeded
+      generator to pos 524,272 (a prefill of 524 k tokens is O(S.L)),
+      then 16 decode_step(long_ctx=True) calls, each held against a
+      plain evaluation over the whole cache with the band's mask (the
+      sinks unmasked, the window less the sinks). The band step and the
+      full-cache step (long_ctx=False) at pos 524,272 are timed with
+      CUDA events (band, full, full, band) and profiled. A short leg
+      prefills 4,352 tokens, so that the window of 4,096 slides past the
+      128 sinks, then takes 8 band steps against the same evaluation.
+   c. The nine other LM configs at reduced(): prefill, 4 decode and 2
+      long_ctx steps on the card against the port's CPU run from the
+      same weights (RTOL); then `python -m repro_torch.launch.serve
+      demo-lm --arch qwen3_14b --reduced --long-ctx` as a process, which
+      runs on the card by default and must exit 0.
+   Peak device memory is printed per leg.
 
 The main path is every forward of phases 3, 4 and 6, every training
 step of phases 8, 9 and 11, the ops chain of phase 10, the runner
@@ -2876,8 +2906,352 @@ def serve_phase(graph, device, workdir: Path) -> dict:
     return totals
 
 
+# ----------------------------------------------------------- phase 14
+LM_ARCH = "qwen3_14b"  # configs/qwen3_14b at its published widths
+LM_LAYERS = 4  # of 40: depth cut
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 1024, 32
+CHUNKED_BATCH, CHUNKED_PROMPT = 2, 2048  # two query chunks of REPRO_ATTN=chunked
+LM_RTOL = 1e-3  # fp32 logits over layers 5120 / 17408 wide, products in other shapes
+LONG_SHAPE = "long_500k"
+LONG_LAYERS = 2  # of 40: depth cut
+LONG_STEPS = 16
+SLIDE_PROMPT = 4352  # > window 4096 + 128 sinks, so the window slides past the sinks
+SLIDE_STEPS = 8
+TIMING_REPS = 10
+OTHER_PROMPT, OTHER_STEPS, OTHER_LONG_STEPS = 32, 4, 2
+DEMO_LM_ARGS = ("demo-lm", "--arch", LM_ARCH, "--reduced", "--long-ctx")
+
+
+def _lm_config(n_layers):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(LM_ARCH), n_layers=n_layers)
+
+
+def _long_shape() -> tuple:
+    """(cache length, batch) of the long-context shape."""
+    from repro_torch.configs import SHAPES
+
+    return SHAPES[LONG_SHAPE].seq_len, SHAPES[LONG_SHAPE].global_batch
+
+
+def _layer_params(cfg) -> int:
+    """Weights of one attn_mlp layer: q, k, v, o, the SwiGLU and the norms."""
+    d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    return d * h * dh * 2 + d * hkv * dh * 2 + 3 * d * cfg.d_ff + 2 * d + 2 * dh
+
+
+def _event_ms(fn, device, reps) -> float:
+    """Median ms of ``fn()`` over ``reps`` runs, CUDA events around each."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize(device)
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def decode_profile(tag, step, device, n=8) -> None:
+    """The device's busy share over ``n`` calls of ``step`` (a decode step
+    at a fixed position), from a torch.profiler trace: the kernels' summed
+    time over the wall time, and the kernels that take the most."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    sync(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        sync(device)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    if not by_name:
+        log(f"{tag} profile: the trace holds no device time (busy share not measured)")
+        return
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    log(f"{tag} profile over {n} steps: wall {wall_us / n / 1e3:.3f} ms/step, kernels "
+        f"{busy / n / 1e3:.3f} ms/step, device busy {busy / wall_us:.1%}; top: "
+        + "; ".join(f"{name[:60]} {us / n / 1e3:.3f} ms" for name, us in top))
+
+
+def band_reference(model, cfg, tokens, cache):
+    """A long_ctx decode step evaluated plainly: each layer attends over
+    the whole cache with the CSR band's mask (the sinks [0, g) unmasked,
+    the window [start, pos] less the sinks), where the port gathers the
+    band. Writes the step's k and v rows, as the step itself does.
+    Returns the logits (B, 1, V)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import attention as attn
+    from repro_torch.models import modules as m
+    from repro_torch.models import transformer as tr
+
+    with torch.no_grad():
+        x = F.embedding(tokens, model.embed)
+        pos = cache["layers"][0]["pos"]
+        positions = torch.full((x.shape[0], 1), pos, dtype=torch.long, device=x.device)
+        for blk, c in zip(model.blocks, cache["layers"]):
+            h = m.rmsnorm(x, blk.ln1, cfg.norm_eps)
+            q, k, v = attn._qkv(blk.attn, h, cfg, positions)
+            m.write_along_seq(c["k"], k, pos)
+            m.write_along_seq(c["v"], v, pos)
+            length = c["k"].shape[1]
+            g, w, start = attn.band(cfg, pos, length)
+            kpos = torch.arange(length, device=x.device)
+            ok = (kpos < g) | ((kpos >= start) & (kpos <= pos) & (kpos >= g))
+            out = attn._sdpa(q, c["k"], c["v"], m.additive_mask(ok)[None, None, None, :],
+                             1.0 / cfg.resolved_head_dim ** 0.5)
+            x = x + m.linear(out, blk.attn.wo)
+            x = x + m.swiglu(blk.ffn, m.rmsnorm(x, blk.ln2, cfg.norm_eps))
+        return tr._logits(model, x, cfg)
+
+
+def _band_steps(tag, model, cfg, tok, cache, steps, device) -> tuple:
+    """``steps`` greedy long_ctx decode steps through api.decode_step, each
+    held against band_reference first. Returns (tok, cache, max err)."""
+    import torch
+
+    from repro_torch.models import api
+
+    worst = 0.0
+    for i in range(steps):
+        want = band_reference(model, cfg, tok, cache)
+        logits, cache = api.decode_step(model, tok, cfg, cache, long_ctx=True, device=device)
+        worst = max(worst, check_close(f"{tag} step {i}", logits, want, LM_RTOL))
+        tok = torch.argmax(logits[:, -1], -1)[:, None]
+    return tok, cache, worst
+
+
+def lm_full_width_phase(device) -> None:
+    """14a: Qwen3-14B at its published widths, 4 layers: prefill, greedy
+    decode, teacher forcing, and the chunked prefill."""
+    import torch
+
+    from repro_torch.models import api
+
+    cfg = _lm_config(LM_LAYERS)
+    gen = torch.Generator(device=device).manual_seed(0)
+    t0 = time.perf_counter()
+    model = api.init_model(cfg, gen, torch.float32, device=device)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=gen, device=device)
+    sync(device)
+    n_par = sum(p.numel() for p in model.parameters())
+    log(f"14a {cfg.name} x {LM_LAYERS} layers: {n_par / 1e9:.3f} B fp32 parameters "
+        f"({n_par * 4 / 1e9:.2f} GB), drawn in {time.perf_counter() - t0:.1f} s")
+    length = LM_PROMPT + LM_GEN
+    prefill_s = []
+    for _ in range(2):  # cold, then warm (a fresh cache each)
+        cache = api.init_cache(cfg, LM_BATCH, length, torch.float32, device=device)
+        sync(device)
+        t0 = time.perf_counter()
+        logits, cache = api.prefill(model, {"tokens": prompts}, cfg, cache, device=device)
+        sync(device)
+        prefill_s.append(time.perf_counter() - t0)
+    tok = torch.argmax(logits[:, -1], -1)[:, None]
+    steps, out = [logits], [tok]
+    sync(device)
+    t0 = time.perf_counter()
+    for i in range(LM_GEN):
+        if i == LM_GEN // 2:  # this position's dicts, for the profile below
+            at_mid = ({"layers": [dict(c) for c in cache["layers"]]}, tok)
+        logits, cache = api.decode_step(model, tok, cfg, cache, device=device)
+        tok = torch.argmax(logits[:, -1], -1)[:, None]
+        steps.append(logits)
+        out.append(tok)
+    sync(device)
+    decode_s = time.perf_counter() - t0
+    if cache["layers"][0]["pos"] != length:
+        raise AssertionError(f"14a: cache pos {cache['layers'][0]['pos']} != {length}")
+    # teacher forcing: the prompt and the generated tokens in one forward
+    seq = torch.cat([prompts] + out[:-1], dim=1)
+    with torch.no_grad():
+        full = api.forward(model, {"tokens": seq}, cfg, device=device)
+    worst = 0.0
+    for i, lg in enumerate(steps):
+        worst = max(worst, check_close(f"14a logits {i} vs teacher forcing", lg[:, 0],
+                                       full[:, LM_PROMPT - 1 + i], LM_RTOL))
+        if not torch.isfinite(lg).all():
+            raise AssertionError(f"14a: non-finite logits at step {i}")
+    agree = float((full[:, LM_PROMPT - 1:].argmax(-1) == torch.cat(out, 1)).float().mean())
+    del full
+    # bounds: causal prefill FLOPs over fp32 peak; a decode step's bytes
+    tokens = LM_BATCH * LM_PROMPT
+    lin = LM_LAYERS * _layer_params(cfg)
+    attn_flops = LM_LAYERS * 4 * LM_BATCH * cfg.n_heads * cfg.resolved_head_dim * (
+        LM_PROMPT * (LM_PROMPT + 1) // 2)
+    prefill_flops = 2 * tokens * lin + attn_flops + 2 * LM_BATCH * cfg.d_model * cfg.vocab
+    kv_row = 2 * LM_LAYERS * cfg.n_kv_heads * cfg.resolved_head_dim * 4
+    mid = LM_PROMPT + LM_GEN // 2
+    step_bytes = (lin + cfg.d_model * cfg.vocab) * 4 + LM_BATCH * mid * kv_row
+    ms_tok = decode_s / LM_GEN * 1e3
+    log(f"14a prefill {LM_BATCH} x {LM_PROMPT} tokens: cold {prefill_s[0] * 1e3:.1f} ms, "
+        f"warm {prefill_s[1] * 1e3:.1f} ms; bound {prefill_flops / FP32_FLOPS * 1e3:.1f} ms "
+        f"({prefill_flops / 1e12:.2f} TFLOP / 67 TFLOP/s fp32)")
+    log(f"14a decode {LM_GEN} steps x batch {LM_BATCH}: {decode_s * 1e3:.1f} ms, "
+        f"{ms_tok:.3f} ms/step, {LM_BATCH * LM_GEN / decode_s:.1f} tokens/s; bound "
+        f"{step_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms/step ({step_bytes / 1e9:.2f} GB of "
+        f"weights and KV / 3.35 TB/s)")
+    log(f"14a teacher forcing: {LM_GEN + 1} logits rows within {LM_RTOL} (max err "
+        f"{worst:.3e}); greedy tokens equal to the forward's argmax {agree:.4f}")
+    decode_profile("14a decode", lambda: api.decode_step(model, at_mid[1], cfg, at_mid[0],
+                                                         device=device), device)
+    # REPRO_ATTN=chunked prefill (cache length == prompt: two query chunks)
+    p2 = prompts[:CHUNKED_BATCH].repeat(1, CHUNKED_PROMPT // LM_PROMPT)
+    res = {}
+    for mode in ("naive", "chunked"):
+        with env(REPRO_ATTN=mode):
+            c = api.init_cache(cfg, CHUNKED_BATCH, CHUNKED_PROMPT, torch.float32, device=device)
+            res[mode] = api.prefill(model, {"tokens": p2}, cfg, c, device=device)
+    err = check_close("14a chunked prefill logits", res["chunked"][0], res["naive"][0], LM_RTOL)
+    for i, (a, b) in enumerate(zip(res["chunked"][1]["layers"], res["naive"][1]["layers"])):
+        err = max(err, check_close(f"14a chunked prefill k {i}", a["k"], b["k"], LM_RTOL),
+                  check_close(f"14a chunked prefill v {i}", a["v"], b["v"], LM_RTOL))
+    log(f"14a REPRO_ATTN=chunked prefill {CHUNKED_BATCH} x {CHUNKED_PROMPT} equals naive "
+        f"within {LM_RTOL} (max err {err:.3e})")
+
+
+def lm_long_context_phase(device) -> None:
+    """14b: the long_500k shape through the CSR window + sink decode."""
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.models.attention import band
+
+    cfg = _lm_config(LONG_LAYERS)
+    length, batch = _long_shape()
+    gen = torch.Generator(device=device).manual_seed(1)
+    model = api.init_model(cfg, gen, torch.float32, device=device)
+    cache = api.init_cache(cfg, batch, length, torch.float32, device=device)
+    pos0 = length - LONG_STEPS
+    t0 = time.perf_counter()
+    for c in cache["layers"]:  # cut: a seeded fill stands in for a 524k prefill
+        c["k"][:, :pos0].normal_(generator=gen)
+        c["v"][:, :pos0].normal_(generator=gen)
+        c["pos"] = pos0
+    sync(device)
+    kv_gb = sum(c["k"].numel() + c["v"].numel() for c in cache["layers"]) * 4 / 1e9
+    log(f"14b {LONG_SHAPE}: batch {batch}, cache {length} x {LONG_LAYERS} layers "
+        f"({kv_gb:.2f} GB fp32), filled to pos {pos0} from a seeded generator "
+        f"({time.perf_counter() - t0:.1f} s)")
+    tok = torch.randint(0, cfg.vocab, (batch, 1), generator=gen, device=device)
+    at_pos0 = {"layers": [dict(c) for c in cache["layers"]]}  # pos0 dicts, shared tensors
+    tok, cache, worst = _band_steps("14b band", model, cfg, tok, cache, LONG_STEPS, device)
+    log(f"14b {LONG_STEPS} long_ctx decode steps (pos {pos0}..{length - 1}) equal the plain "
+        f"band evaluation over the whole cache within {LM_RTOL} (max err {worst:.3e})")
+    # time band and full-cache decode at pos0 (a step at one position, repeated)
+    ms = {True: [], False: []}
+    for long_ctx in (True, False, False, True):
+        ms[long_ctx].append(_event_ms(
+            lambda: api.decode_step(model, tok, cfg, at_pos0, long_ctx=long_ctx, device=device),
+            device, TIMING_REPS))
+    g, w, _ = band(cfg, pos0, length)
+    kv_row = cfg.n_kv_heads * cfg.resolved_head_dim * 4 * 2 * LONG_LAYERS * batch
+    weights = (LONG_LAYERS * _layer_params(cfg) + cfg.d_model * cfg.vocab) * 4
+    bound_band = (weights + (g + w) * kv_row) / HBM_BYTES_PER_S * 1e3
+    bound_full = (weights + (pos0 + 1) * kv_row) / HBM_BYTES_PER_S * 1e3
+    band_ms, full_ms = statistics.mean(ms[True]), statistics.mean(ms[False])
+    log(f"14b decode at pos {pos0}: band (long_ctx) {ms[True][0]:.3f} / {ms[True][1]:.3f} ms "
+        f"(bound {bound_band:.3f}), full cache {ms[False][0]:.3f} / {ms[False][1]:.3f} ms "
+        f"(bound {bound_full:.3f}); full / band {full_ms / band_ms:.2f}x")
+    for long_ctx in (True, False):
+        decode_profile(f"14b decode long_ctx={long_ctx}", lambda: api.decode_step(
+            model, tok, cfg, at_pos0, long_ctx=long_ctx, device=device), device)
+    del cache, at_pos0
+    _empty_cache(device)
+    # the short leg: a real prefill long enough for the window to slide
+    prompt = torch.randint(0, cfg.vocab, (1, SLIDE_PROMPT), generator=gen, device=device)
+    cache = api.init_cache(cfg, 1, SLIDE_PROMPT + SLIDE_STEPS, torch.float32, device=device)
+    logits, cache = api.prefill(model, {"tokens": prompt}, cfg, cache, device=device)
+    tok = torch.argmax(logits[:, -1], -1)[:, None]
+    g, _, start = band(cfg, SLIDE_PROMPT, SLIDE_PROMPT + SLIDE_STEPS)
+    tok, cache, worst = _band_steps("14b slide", model, cfg, tok, cache, SLIDE_STEPS, device)
+    log(f"14b prefill {SLIDE_PROMPT} then {SLIDE_STEPS} long_ctx steps (sinks [0, {g}), "
+        f"window from {start}): equal the plain band evaluation within {LM_RTOL} "
+        f"(max err {worst:.3e})")
+
+
+def lm_other_archs_phase(device) -> None:
+    """14c: every other LM architecture at reduced(), on the card against
+    the port's CPU run from the same weights, and demo-lm as a process."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, get_config, reduced
+    from repro_torch.models import api
+
+    cpu = torch.device("cpu")
+    for arch in ARCH_IDS:
+        if arch in ("gnn_sage", LM_ARCH):
+            continue
+        cfg = reduced(get_config(arch))
+        gen = torch.Generator().manual_seed(2)
+        host = api.init_model(cfg, gen, torch.float32, device=cpu)
+        card = copy.deepcopy(host).to(device)
+        toks = torch.randint(0, cfg.vocab, (2, OTHER_PROMPT), generator=gen)
+        batch = {"tokens": toks}
+        if cfg.family == "vlm":
+            batch["patch_embeds"] = torch.randn((2, cfg.vlm_patches, cfg.d_model), generator=gen)
+        if cfg.family == "audio":
+            batch["frames"] = torch.randn((2, cfg.enc_dec.enc_seq, cfg.d_model), generator=gen)
+        length = OTHER_PROMPT + cfg.vlm_patches + OTHER_STEPS + OTHER_LONG_STEPS
+        c_host = api.init_cache(cfg, 2, length, torch.float32, device=cpu)
+        c_card = api.init_cache(cfg, 2, length, torch.float32, device=device)
+        want, c_host = api.prefill(host, batch, cfg, c_host, device=cpu)
+        got, c_card = api.prefill(card, batch, cfg, c_card, device=device)
+        worst = check_close(f"14c {arch} prefill", got.cpu(), want)
+        for i in range(OTHER_STEPS + OTHER_LONG_STEPS):
+            tok = torch.argmax(want[:, -1], -1)[:, None]
+            long_ctx = i >= OTHER_STEPS
+            want, c_host = api.decode_step(host, tok, cfg, c_host, long_ctx=long_ctx, device=cpu)
+            got, c_card = api.decode_step(card, tok, cfg, c_card, long_ctx=long_ctx,
+                                          device=device)
+            worst = max(worst, check_close(f"14c {arch} decode {i}", got.cpu(), want))
+        log(f"14c {arch}: prefill + {OTHER_STEPS} decode + {OTHER_LONG_STEPS} long_ctx steps "
+            f"on the card equal the CPU within {RTOL} (max err {worst:.3e})")
+        del card, c_card
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *DEMO_LM_ARGS]
+    t0 = time.perf_counter()
+    rc, out, err = _run_cmd(cmd, 300)
+    lines = [ln for ln in out.splitlines() if ln.startswith("[serve]")]
+    for ln in lines:
+        log(f"14c   {ln}")
+    if rc != 0 or len(lines) != 4:
+        raise AssertionError(f"14c demo-lm: rc {rc}, {len(lines)} [serve] lines: {err[-2000:]}")
+    log(f"14c demo-lm (the card by default) exit 0 in {time.perf_counter() - t0:.1f} s")
+
+
+def lm_serving_phase(device) -> None:
+    """Phase 14: LLM serving on the card. No hand-written kernel is on
+    this path (the JAX LLM stack reaches no Pallas kernel). The peak
+    printed after each leg is the phase's so far."""
+    for label, fn in (("14a (Qwen3-14B full width)", lm_full_width_phase),
+                      ("14b (long context, CSR window + sink)", lm_long_context_phase),
+                      ("14c (every other architecture, demo-lm)", lm_other_archs_phase)):
+        t0 = time.perf_counter()
+        fn(device)
+        _empty_cache(device)
+        log(f"== phase {label}: {time.perf_counter() - t0:.1f} s")
+        _peak(f"phase 14 through {label[:3]}", device)
+
+
 def run(device, scale: float = SCALE, reps: int = 5) -> list:
-    """Phases 2-13 on ``device``; returns the kernels records."""
+    """Phases 2-14 on ``device``; returns the kernels records."""
     from repro_torch.core import registry
     from repro_torch.models.gnn import norm_csr
     from repro_torch.sparse import reddit_like
@@ -2940,6 +3314,8 @@ def run(device, scale: float = SCALE, reps: int = 5) -> list:
         add(counts, phase("phase 12 (fleet and cross-device)", fleet_cross_device_phase, graph,
                           dedup, device, work, faults_ok=True))
         add(counts, phase("phase 13 (serving)", serve_phase, graph, device, work))
+        del graph, dedup
+        phase("phase 14 (LLM serving)", lm_serving_phase, device)
     log(f"main-path launches (sum of the counted runs): {json.dumps(counts)}")
     missing = [name for name in records if counts.get(name, 0) == 0]
     if missing:

@@ -1,9 +1,9 @@
 """Online serving tier: schedule decisions under a per-request budget.
 
-Port of repro/launch/serve.py (its ``serve_gnn`` subcommand; the LLM
-demo waits for the port of the LLM stack). `serve_gnn`, the default
-subcommand, drives concurrent client streams of sampled subgraphs into
-one `GNNServer`. Every request is answered from one of four tiers:
+Port of repro/launch/serve.py: the ``serve_gnn`` and ``demo-lm``
+subcommands. `serve_gnn`, the default subcommand, drives concurrent
+client streams of sampled subgraphs into one `GNNServer`. Every request
+is answered from one of four tiers:
 
   warm         a pinned bucket decision (local probe, warm cache open, or
                a drift-flagged bucket still serving its last pin),
@@ -35,6 +35,13 @@ it. Elsewhere a probe exception is only counted
         --clients 4 --requests 64
     # on the CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+
+`demo-lm` prefills a batch of random prompts through an LLM of
+`repro_torch.configs` and decodes greedily, optionally through the
+sliding-window + sink CSR attention (``--long-ctx``):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve demo-lm \\
+        --arch qwen3_14b --reduced --batch 4 --prompt-len 64 --gen 32
 """
 from __future__ import annotations
 
@@ -406,9 +413,72 @@ def serve_gnn_main(args: argparse.Namespace) -> int:
     return 0 if stats["stalls"] == 0 else 1
 
 
+# -------------------------------------------------------------- demo-lm
+
+
+def demo_lm_main(args: argparse.Namespace) -> int:
+    """LLM serving demo: prefill a batch of prompts, then decode greedily.
+    Weights and prompts come from a torch.Generator seeded with
+    ``--seed`` (JAX's demo draws them from jax.random, so the
+    generations differ)."""
+    from repro_torch.configs.base import get_config, reduced as reduce_cfg
+    from repro_torch.core.features import resolve_device
+    from repro_torch.models import api
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduce_cfg(cfg)
+    device = resolve_device(args.device)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    model = api.init_model(cfg, gen, torch.float32)
+    max_len = args.prompt_len + args.gen
+    cache = api.init_cache(cfg, args.batch, max_len, torch.float32, device=device)
+
+    prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), generator=gen,
+                            device=device)
+    batch = {"tokens": prompts}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn((args.batch, cfg.vlm_patches, cfg.d_model),
+                                            generator=gen, device=device)
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((args.batch, cfg.enc_dec.enc_seq, cfg.d_model),
+                                      generator=gen, device=device)
+
+    prefill = make_prefill_step(cfg, device=device)
+    decode = make_decode_step(cfg, long_ctx=args.long_ctx, device=device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    t0 = time.time()
+    logits, cache = prefill(model, batch, cache)
+    sync()
+    t_prefill = time.time() - t0
+
+    tok = torch.argmax(logits[:, -1], -1)[:, None]
+    out = [tok]
+    t0 = time.time()
+    for _ in range(args.gen - 1):
+        logits, cache = decode(model, tok, cache)
+        tok = torch.argmax(logits[:, -1], -1)[:, None]
+        out.append(tok)
+    sync()
+    t_decode = time.time() - t0
+
+    gen_tokens = torch.cat(out, dim=1).cpu().numpy()
+    print(f"[serve] arch={cfg.name} batch={args.batch}")
+    print(f"[serve] prefill {args.prompt_len} toks: {t_prefill*1e3:.1f} ms")
+    print(f"[serve] decode {args.gen-1} steps: {t_decode*1e3:.1f} ms "
+          f"({t_decode/max(args.gen-1, 1)*1e3:.2f} ms/tok)")
+    print(f"[serve] sample generations: {gen_tokens[:, :8].tolist()}")
+    return 0
+
+
 # ------------------------------------------------------------------ CLI
 
-_COMMANDS = ("serve_gnn",)
+_COMMANDS = ("serve_gnn", "demo-lm")
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -449,6 +519,18 @@ def _build_parser() -> argparse.ArgumentParser:
     sg.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' to run here)")
     sg.set_defaults(fn=serve_gnn_main)
+
+    lm = sub.add_parser("demo-lm", help="LLM prefill/decode serving demo")
+    lm.add_argument("--arch", required=True)
+    lm.add_argument("--reduced", action="store_true")
+    lm.add_argument("--batch", type=int, default=4)
+    lm.add_argument("--prompt-len", type=int, default=64)
+    lm.add_argument("--gen", type=int, default=32)
+    lm.add_argument("--long-ctx", action="store_true", help="CSR window+sink attention")
+    lm.add_argument("--seed", type=int, default=0)
+    lm.add_argument("--device", default=None,
+                    help="torch device (default: the card; 'cpu' to run here)")
+    lm.set_defaults(fn=demo_lm_main)
     return ap
 
 

@@ -25,11 +25,9 @@ import torch
 from torch import nn
 
 from repro_torch import api
+from repro_torch.configs.gnn_sage import CONFIG as SAGE_CONFIG
 from repro_torch.core.features import resolve_device
 from repro_torch.sparse.csr import CSR
-
-# copy of repro/configs/gnn_sage.py (paper §7): 3 layers, width 256
-SAGE_CONFIG = {"name": "gnn-sage", "n_layers": 3, "d_model": 256}
 
 
 def norm_csr(csr: CSR) -> CSR:
@@ -54,8 +52,8 @@ class SAGE(nn.Module):
         self,
         in_dim: int,
         n_classes: int,
-        d_model: int = SAGE_CONFIG["d_model"],
-        n_layers: int = SAGE_CONFIG["n_layers"],
+        d_model: int = SAGE_CONFIG.d_model,
+        n_layers: int = SAGE_CONFIG.n_layers,
         *,
         seed: int = 0,
         device=None,
@@ -119,7 +117,7 @@ def sage_params_from_jax(params_np: Dict[str, Sequence[np.ndarray]], device=None
     output, given as numpy arrays ``{"w_agg": [...], "w_self": [...]}``."""
     w_agg, w_self = params_np["w_agg"], params_np["w_self"]
     n_layers = len(w_agg)
-    d_model = w_agg[0].shape[1] if n_layers > 1 else SAGE_CONFIG["d_model"]
+    d_model = w_agg[0].shape[1] if n_layers > 1 else SAGE_CONFIG.d_model
     model = SAGE(w_agg[0].shape[0], w_agg[-1].shape[1], d_model, n_layers, device=device)
     with torch.no_grad():
         for dst, src in zip([*model.w_agg, *model.w_self], [*w_agg, *w_self]):
@@ -139,7 +137,7 @@ class GAT(nn.Module):
     def __init__(
         self,
         in_dim: int,
-        d_model: int = SAGE_CONFIG["d_model"],
+        d_model: int = SAGE_CONFIG.d_model,
         *,
         seed: int = 0,
         device=None,

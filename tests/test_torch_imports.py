@@ -70,8 +70,24 @@ def test_every_slice_module_is_checked():
         "src/repro_torch/shared_worker.py",
         "src/repro_torch/launch/serve.py",
         "src/repro_torch/obs_cli.py",
+        "src/repro_torch/configs/__init__.py",
+        "src/repro_torch/configs/base.py",
+        "src/repro_torch/configs/qwen3_14b.py",
+        "src/repro_torch/models/modules.py",
+        "src/repro_torch/models/attention.py",
+        "src/repro_torch/models/moe.py",
+        "src/repro_torch/models/ssm.py",
+        "src/repro_torch/models/rglru.py",
+        "src/repro_torch/models/transformer.py",
+        "src/repro_torch/models/encdec.py",
+        "src/repro_torch/models/api.py",
+        "src/repro_torch/train/step.py",
         "chip_smoke.py",
     } <= checked
+    archs = {f.stem for f in (PORT / "configs").glob("*.py")} - {"__init__", "base"}
+    assert len(archs) == 11  # every architecture, gnn_sage too
+    serve = (PORT / "launch" / "serve.py").read_text()
+    assert '"demo-lm"' in serve and "def demo_lm_main" in serve
     assert (PORT / "csrc" / "attention.cu").is_file()
     assert (PORT / "csrc" / "sddmm.cu").is_file()
     assert (PORT / "csrc" / "softmax.cu").is_file()
