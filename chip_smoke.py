@@ -254,6 +254,36 @@ order; any failure raises and the script exits non-zero:
       demo-lm --arch qwen3_14b --reduced --long-ctx` as a process, which
       runs on the card by default and must exit 0.
    Peak device memory is printed per leg.
+15. LLM training (train/loss.py, optim/adamw.py, train/step.py,
+   data/, checkpoint/ckpt.py, launch/train.py), fp32, TF32 off; like
+   phase 14 it reaches no hand-written kernel (the JAX training path
+   reaches no Pallas kernel), so it adds no launches and no record:
+   a. configs/qwen3_14b at its published widths, cut to 4 of 40 layers,
+      weights drawn on the card from a seeded generator: 6 steps of
+      make_train_step (AdamW at lr 3e-4, the launcher's warmup) on
+      token_batch batches of 8 x 256 (seed 0). Printed per step: ms
+      (host clock after a sync), tokens/s, loss, grad norm, lr and
+      AdamW's ms (CUDA events around its update); then the warm step
+      against its bound (matrix and attention FLOPs with remat's second
+      forward / 67 TFLOP/s, plus AdamW's 7 passes over the weights'
+      bytes / 3.35 TB/s), AdamW's share, the loss trend and the peak
+      memory. Fails on a non-finite loss or grad norm.
+   b. The ten LM configs at reduced(): the same weights and batch (2 x
+      32) on the CPU and, carried over by train_state_to_numpy /
+      train_state_from_jax, on the card; one train step (AdamW lr 1e-4)
+      and one eval step each, loss, nll, z_loss, grad norm, lr, weights,
+      m and v within 1e-4 of max |ref| (a weight whose gradient is below
+      1e-4 of its leaf's max within 2 lr: AdamW's first step moves it by
+      lr * g / (|g| + eps), ~lr of either sign). Then 60 steps of reduced
+      qwen3_14b at lr 3e-3 (4 x 64) on the card: the mean loss of the
+      last 5 steps at least 0.2 below the first 5's.
+   c. `python -m repro_torch.launch.train --arch qwen3_14b --reduced
+      --steps 30 --batch 2 --seq 32 --ckpt-every 10` as a process (the
+      card by default) with --crash-at 25: exit 17, step 20 committed;
+      again without it: "resumed from step 20", exit 0, step 30
+      committed; its arrays within 1e-6 of max |ref| of an
+      uninterrupted run's (launch.train.main in-process). **Cut:**
+      reduced size, since a full-width checkpoint is 46 GB.
 
 The main path is every forward of phases 3, 4 and 6, every training
 step of phases 8, 9 and 11, the ops chain of phase 10, the runner
@@ -273,6 +303,8 @@ JSON.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -3250,8 +3282,289 @@ def lm_serving_phase(device) -> None:
         _peak(f"phase 14 through {label[:3]}", device)
 
 
+# ----------------------------------------------------------- phase 15
+TRAIN_LAYERS = 4  # of 40: depth cut, as in 14a
+TRAIN_BATCH, TRAIN_SEQ = 8, 256  # launch/train.py's defaults
+TRAIN_LR = 3e-4  # launch/train.py's default
+TRAIN_STEPS = 6
+OTHER_BATCH, OTHER_SEQ = 2, 32
+OTHER_OPT = dict(lr=1e-4, warmup_steps=2, total_steps=10)  # as tests/test_torch_lm_train.py
+DECREASE_STEPS, DECREASE_LR, DECREASE_BAR = 60, 3e-3, 0.2  # tests/test_train_ckpt.py's
+DECREASE_BATCH, DECREASE_SEQ = 4, 64
+CLI_RTOL = 1e-6  # resumed vs uninterrupted weights on the card
+CLI_ARGS = ("--arch", LM_ARCH, "--reduced", "--steps", "30", "--batch", "2", "--seq", "32",
+            "--ckpt-every", "10", "--log-every", "10")
+
+
+def _rel_err(name, got, want, rtol) -> float:
+    """max |got - want| / max |want|; raise if above ``rtol`` or not finite."""
+    import torch
+
+    got, want = torch.as_tensor(got).float().cpu(), torch.as_tensor(want).float().cpu()
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite values")
+    if not got.numel():
+        return 0.0
+    rel = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+    if rel > rtol:
+        raise AssertionError(f"{name}: max err {rel:.3e} of max |ref| > {rtol}")
+    return rel
+
+
+def _step_err(name, got, want, m, lr) -> tuple:
+    """Weights after one AdamW step, card against CPU. The first step
+    moves each weight by lr * g / (|g| + eps): by ~lr whatever |g|, so
+    where the gradient (m / (1 - b1)) is below RTOL of its leaf's max,
+    rounding may flip its sign, and such a weight is held to 2 lr;
+    every other weight to RTOL of max |ref|. Returns (max err over max
+    |ref| of the others, the count of the former with a nonzero
+    gradient)."""
+    import torch
+
+    got, want, m = (torch.as_tensor(x).float() for x in (got, want, m))
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite values")
+    if not want.numel():
+        return 0.0, 0
+    tied = m.abs() <= RTOL * float(m.abs().max())
+    diff = (got - want).abs()
+    if bool((diff[tied] > 2 * lr * (1 + RTOL)).any()):
+        raise AssertionError(f"{name}: a weight with a near-zero gradient moved more than 2 lr")
+    scale = max(float(want.abs().max()), 1e-30)
+    rel = float(diff[~tied].max()) / scale if bool((~tied).any()) else 0.0
+    if rel > RTOL:
+        raise AssertionError(f"{name}: max err {rel:.3e} of max |ref| > {RTOL}")
+    return rel, int((tied & (m != 0)).sum())
+
+
+def _train_flops(cfg, n_layers, batch, seq) -> float:
+    """FLOPs of one train step with remat: 6 per matrix weight per token
+    (forward, two backward products) plus 2 for the recomputed forward of
+    the layers (not the unembedding), and the attention products over
+    the causal half of each S x S score matrix, 4 passes (forward, remat,
+    two backward)."""
+    tokens = batch * seq
+    layer = _layer_params(cfg) - 2 * cfg.d_model - 2 * cfg.resolved_head_dim  # matrices only
+    unembed = cfg.d_model * cfg.vocab
+    attn = 4 * 2 * 2 * batch * cfg.n_heads * cfg.resolved_head_dim * seq * (seq + 1) // 2
+    return 6 * tokens * (n_layers * layer + unembed) + 2 * tokens * n_layers * layer + \
+        n_layers * attn
+
+
+def lm_train_full_width_phase(device) -> None:
+    """15a: Qwen3-14B at its published widths, 4 layers, fp32: train steps
+    through make_train_step on token_batch batches, timed against the
+    FLOP bound, with AdamW's share (CUDA events) and the peak memory."""
+    import torch
+
+    from repro_torch.data.synthetic import PipelineState, token_batch
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import step as tstep
+
+    cfg = _lm_config(TRAIN_LAYERS)
+    _peak_reset(device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    t0 = time.perf_counter()
+    state = tstep.init_train_state(cfg, gen, torch.float32, device=device)
+    sync(device)
+    n_par = sum(p.numel() for p in state.params.parameters())
+    log(f"15a {cfg.name} x {TRAIN_LAYERS} layers: {n_par / 1e9:.3f} B fp32 parameters; "
+        f"weights, m and v {3 * n_par * 4 / 1e9:.2f} GB, with the gradients "
+        f"{4 * n_par * 4 / 1e9:.2f} GB (drawn in {time.perf_counter() - t0:.1f} s)")
+    opt = AdamWConfig(lr=TRAIN_LR, total_steps=TRAIN_STEPS,
+                      warmup_steps=min(20, TRAIN_STEPS // 5))
+    adam_ms = []
+    real_update = tstep.adamw_update
+
+    def timed_update(*args):  # CUDA events around the step's AdamW update
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_update(*args)
+        end.record()
+        adam_ms.append((start, end))
+        return out
+
+    tstep.adamw_update = timed_update
+    try:
+        step_fn = tstep.make_train_step(cfg, opt, device=device)
+        rows = []
+        for i in range(TRAIN_STEPS):
+            batch = token_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, PipelineState(0, i))
+            sync(device)
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            sync(device)
+            rows.append((time.perf_counter() - t0, float(m["loss"]), float(m["grad_norm"]),
+                         float(m["lr"])))
+    finally:
+        tstep.adamw_update = real_update
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for i, (s, loss, gn, lr) in enumerate(rows):
+        if not (math.isfinite(loss) and math.isfinite(gn)):
+            raise AssertionError(f"15a step {i}: loss {loss}, grad norm {gn}")
+        adam = adam_ms[i][0].elapsed_time(adam_ms[i][1])
+        log(f"15a step {i}: {s * 1e3:.1f} ms, {tokens / s:.1f} tokens/s, loss {loss:.4f}, "
+            f"grad norm {gn:.4f}, lr {lr:.3e}, AdamW {adam:.2f} ms")
+    if int(state.step) != TRAIN_STEPS or int(state.opt.count) != TRAIN_STEPS:
+        raise AssertionError(f"15a: step {int(state.step)}, count {int(state.opt.count)}")
+    flops = _train_flops(cfg, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ)
+    adam_bytes = 7 * n_par * 4  # read g, p, m, v; write p, m, v
+    bound_s = flops / FP32_FLOPS + adam_bytes / HBM_BYTES_PER_S
+    warm = [r[0] for r in rows[1:]]
+    warm_ms = statistics.median(warm) * 1e3
+    adam_warm = statistics.median(a.elapsed_time(b) for a, b in adam_ms[1:])
+    log(f"15a warm step (median of steps 1-{TRAIN_STEPS - 1}): {warm_ms:.1f} ms, "
+        f"{tokens / warm_ms * 1e3:.1f} tokens/s; cold step {rows[0][0] * 1e3:.1f} ms; bound "
+        f"{bound_s * 1e3:.1f} ms ({flops / 1e12:.2f} TFLOP / 67 TFLOP/s fp32 + AdamW "
+        f"{adam_bytes / 1e9:.2f} GB / 3.35 TB/s = {adam_bytes / HBM_BYTES_PER_S * 1e3:.1f} ms), "
+        f"{bound_s * 1e3 / warm_ms:.1%} of it")
+    log(f"15a AdamW: {adam_warm:.2f} ms of the warm step ({adam_warm / warm_ms:.1%}), bound "
+        f"{adam_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms")
+    log(f"15a loss trend: {', '.join(f'{r[1]:.4f}' for r in rows)}")
+    if device.type == "cuda":
+        log(f"15a peak device memory {torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
+    del state, step_fn
+
+
+def lm_train_other_archs_phase(device) -> None:
+    """15b: every LM architecture at reduced(): one train step and one eval
+    step on the card against the CPU from the same weights and batch, then
+    60 steps of reduced qwen3_14b on the card, whose loss must fall."""
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, get_config, reduced
+    from repro_torch.data.synthetic import PipelineState, token_batch
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import step as tstep
+
+    cpu = torch.device("cpu")
+    worst = 0.0
+    for arch in ARCH_IDS:
+        if arch == "gnn_sage":
+            continue
+        cfg = reduced(get_config(arch))
+        host = tstep.init_train_state(cfg, 4, torch.float32, device=cpu)
+        card = api.train_state_from_jax(cfg, api.train_state_to_numpy(cfg, host), device=device)
+        batch = token_batch(cfg, OTHER_BATCH, OTHER_SEQ, PipelineState(0, 0))
+        ev = {d: tstep.make_eval_step(cfg, device=d)(st.params, batch)
+              for d, st in ((cpu, host), (device, card))}
+        res = {}
+        for d, st in ((cpu, host), (device, card)):
+            st, m = tstep.make_train_step(cfg, AdamWConfig(**OTHER_OPT), device=d)(st, batch)
+            res[d] = (api.train_state_to_numpy(cfg, st), m)
+        err = max(_rel_err(f"15b {arch} eval {k}", ev[device][k], ev[cpu][k], RTOL)
+                  for k in ev[cpu])
+        for k in ("loss", "nll", "z_loss", "grad_norm", "lr"):
+            err = max(err, _rel_err(f"15b {arch} {k}", res[device][1][k], res[cpu][1][k], RTOL))
+        (got, _), (want, metrics) = res[device], res[cpu]
+        lr = float(metrics["lr"])
+        for part, g, w in (("m", got.opt.m, want.opt.m), ("v", got.opt.v, want.opt.v)):
+            for (path, a), (_, b) in zip(_tree_items(g), _tree_items(w)):
+                err = max(err, _rel_err(f"15b {arch} {part} {path}", a, b, RTOL))
+        n_tied = 0
+        for (path, a), (_, b), (_, m) in zip(_tree_items(got.params), _tree_items(want.params),
+                                             _tree_items(want.opt.m)):
+            e, n = _step_err(f"15b {arch} params {path}", a, b, m, lr)
+            err, n_tied = max(err, e), n_tied + n
+        worst = max(worst, err)
+        log(f"15b {arch}: a train step (loss, grad norm, lr, weights, m, v) and an eval step on "
+            f"the card equal the CPU within {RTOL} of max |ref| (max {err:.3e}; {n_tied} weights "
+            f"with a nonzero |grad| below {RTOL} of their leaf's max held to 2 lr)")
+        del host, card, res
+    cfg = reduced(get_config(LM_ARCH))
+    state = tstep.init_train_state(cfg, 0, torch.float32, device=device)
+    step = tstep.make_train_step(cfg, AdamWConfig(lr=DECREASE_LR, total_steps=70,
+                                                  warmup_steps=5), device=device)
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(DECREASE_STEPS):
+        state, m = step(state, token_batch(cfg, DECREASE_BATCH, DECREASE_SEQ,
+                                           PipelineState(0, i)))
+        losses.append(m["loss"])
+    losses = [float(x) for x in losses]
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    log(f"15b {DECREASE_STEPS} steps of {cfg.name} at lr {DECREASE_LR} ({DECREASE_BATCH} x "
+        f"{DECREASE_SEQ}, {time.perf_counter() - t0:.1f} s): mean loss of the first 5 "
+        f"{first:.4f}, of the last 5 {last:.4f}")
+    if not last < first - DECREASE_BAR:
+        raise AssertionError(f"15b: the loss fell by {first - last:.4f} < {DECREASE_BAR}")
+    log(f"15b all {len(ARCH_IDS) - 1} archs within {RTOL} (max {worst:.3e})")
+
+
+def _tree_items(tree, prefix=""):
+    """(path, leaf) of a nested dict/list of arrays, in a fixed order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tree_items(tree[k], f"{prefix}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _tree_items(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+def lm_train_cli_phase(device, workdir: Path) -> None:
+    """15c: `python -m repro_torch.launch.train` on the card: a crash at
+    step 25 (exit code 17, step 20 committed), a resume to step 30, and
+    the final weights against an uninterrupted run's."""
+    import numpy as np
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch import train
+
+    ck, ref = workdir / "train_ck", workdir / "train_ref"
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *CLI_ARGS, "--ckpt-dir", str(ck)]
+    t0 = time.perf_counter()
+    rc, out, err = _run_cmd(cmd + ["--crash-at", "25"], 300)
+    if rc != 17 or ckpt.latest_step(str(ck)) != 20:
+        raise AssertionError(f"15c crash run: rc {rc}, latest {ckpt.latest_step(str(ck))}: "
+                             f"{err[-2000:]}")
+    log(f"15c crash at step 25: exit 17, latest committed step 20 "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    rc, out, err = _run_cmd(cmd, 300)
+    for ln in out.splitlines():
+        log(f"15c   {ln}")
+    if rc != 0 or "[train] resumed from step 20" not in out or ckpt.latest_step(str(ck)) != 30:
+        raise AssertionError(f"15c resume run: rc {rc}, latest {ckpt.latest_step(str(ck))}: "
+                             f"{err[-2000:]}")
+    log(f"15c resume: exit 0, resumed from step 20, latest step 30 "
+        f"({time.perf_counter() - t0:.1f} s)")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main([*CLI_ARGS, "--ckpt-dir", str(ref), "--device", str(device)])
+    if rc != 0:
+        raise AssertionError(f"15c: the uninterrupted run exited {rc}: {buf.getvalue()[-2000:]}")
+    worst = 0.0
+    with np.load(ck / "step_00000030" / "arrays.npz") as a, \
+            np.load(ref / "step_00000030" / "arrays.npz") as b:
+        if sorted(a.files) != sorted(b.files):
+            raise AssertionError("15c: the two checkpoints hold other keys")
+        for k in b.files:
+            worst = max(worst, _rel_err(f"15c {k}", a[k], b[k], CLI_RTOL))
+    log(f"15c resumed weights, moments and counts equal the uninterrupted run's within "
+        f"{CLI_RTOL} of max |ref| (max {worst:.3e})")
+
+
+def lm_training_phase(device, workdir: Path) -> None:
+    """Phase 15: LLM training on the card. No hand-written kernel is on
+    this path (the JAX training path reaches no Pallas kernel)."""
+    for label, fn, args in (("15a (Qwen3-14B full width)", lm_train_full_width_phase, ()),
+                            ("15b (every architecture, card vs CPU)",
+                             lm_train_other_archs_phase, ()),
+                            ("15c (launch.train crash and resume)", lm_train_cli_phase,
+                             (workdir,))):
+        t0 = time.perf_counter()
+        fn(device, *args)
+        _empty_cache(device)
+        log(f"== phase {label}: {time.perf_counter() - t0:.1f} s")
+
+
 def run(device, scale: float = SCALE, reps: int = 5) -> list:
-    """Phases 2-14 on ``device``; returns the kernels records."""
+    """Phases 2-15 on ``device``; returns the kernels records."""
     from repro_torch.core import registry
     from repro_torch.models.gnn import norm_csr
     from repro_torch.sparse import reddit_like
@@ -3316,6 +3629,8 @@ def run(device, scale: float = SCALE, reps: int = 5) -> list:
         add(counts, phase("phase 13 (serving)", serve_phase, graph, device, work))
         del graph, dedup
         phase("phase 14 (LLM serving)", lm_serving_phase, device)
+        _empty_cache(device)
+        phase("phase 15 (LLM training)", lm_training_phase, device, work)
     log(f"main-path launches (sum of the counted runs): {json.dumps(counts)}")
     missing = [name for name in records if counts.get(name, 0) == 0]
     if missing:

@@ -221,6 +221,36 @@ class BatchScheduler:
         self._transfers_flipped = obs.ScopedCounter("autosage_transfer_verdict_total")
         self._transfer_probe_free = obs.ScopedCounter("autosage_transfer_probe_free_total")
 
+    # counter views: the names tests and benchmarks read (`bs.transfers`,
+    # `bs.drift_flags`, ...) stay plain ints backed by the registry path
+    @property
+    def drift_flags(self) -> int:
+        return self._drift_flags.value
+
+    @property
+    def drift_reprobes(self) -> int:
+        return self._drift_reprobes.value
+
+    @property
+    def drift_flips(self) -> int:
+        return self._drift_flips.value
+
+    @property
+    def transfers(self) -> int:
+        return self._transfers.value
+
+    @property
+    def transfers_confirmed(self) -> int:
+        return self._transfers_confirmed.value
+
+    @property
+    def transfers_flipped(self) -> int:
+        return self._transfers_flipped.value
+
+    @property
+    def transfer_probe_free(self) -> int:
+        return self._transfer_probe_free.value
+
     # per-decide views, local to the deciding thread
     @property
     def last_bucket(self) -> Optional[ScheduleBucket]:

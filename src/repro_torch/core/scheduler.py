@@ -54,6 +54,7 @@ from repro_torch.core.features import (
     waste_bin,
 )
 from repro_torch.core.guardrail import GuardrailDecision, apply_guardrail
+from repro_torch.kernels.ops import _warn_deprecated
 from repro_torch.sparse.csr import CSR, graph_signature
 
 
@@ -545,6 +546,20 @@ class AutoSage:
                            False))
         return resilience.chain_runner(stages, decision.op, breaker=self.breaker,
                                        device=device)
+
+    def spmm(self, csr: CSR, b, seed: int = 0):
+        """Deprecated one-call convenience: decide, build and run; returns
+        (out, decision). Use `repro_torch.api.spmm(csr, b, sage=...)`;
+        callers that need the Decision use `decide` + `build_runner`."""
+        _warn_deprecated("AutoSage.spmm", "repro_torch.api.spmm(csr, b, sage=...)")
+        d = self.decide(csr, int(b.shape[1]), "spmm", seed=seed)
+        return self.build_runner(csr, d)(b), d
+
+    def sddmm(self, csr: CSR, x, y, seed: int = 0):
+        """Deprecated; use `repro_torch.api.sddmm(csr, x, y, sage=...)`."""
+        _warn_deprecated("AutoSage.sddmm", "repro_torch.api.sddmm(csr, x, y, sage=...)")
+        d = self.decide(csr, int(x.shape[1]), "sddmm", seed=seed)
+        return self.build_runner(csr, d)(x, y), d
 
     # ---- pipeline-level CSR attention (core/pipeline.py) -------------
     def decide_attention(self, csr: CSR, d: int, seed: int = 0,

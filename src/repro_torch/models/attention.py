@@ -106,7 +106,7 @@ def _sdpa_causal_chunked(q, k, v, scale, window=None, q_chunk=1024) -> torch.Ten
         if window is not None:
             ok &= kpos > qpos - window
         logits = logits.masked_fill(~ok, NEG_INF)
-        m = torch.amax(logits, dim=-1, keepdim=True)
+        m = torch.amax(logits, dim=-1, keepdim=True).detach()  # JAX's stop_gradient
         p = torch.exp((logits - m).to(q.dtype))  # probs in [0, 1]
         denom = torch.sum(p.float(), dim=-1, keepdim=True)
         o = torch.einsum("bhgsl,blhd->bshgd", p, v_i.to(p.dtype))

@@ -4,14 +4,16 @@ Port of repro/models/encdec.py. The conv frontend is a stub: callers
 give precomputed frame embeddings (B, enc_seq, D); the transformer
 backbone (bidirectional encoder, causal decoder with cross-attention,
 LayerNorm, GELU MLP, learned absolute positions) is real. JAX's stacked
-`enc_layers` / `dec_layers` are `nn.ModuleList`s here.
+`enc_layers` / `dec_layers` are `nn.ModuleList`s here; in training each
+encoder and decoder layer runs under activation checkpointing, as JAX's
+scan bodies do (`transformer.remat`).
 
 Serving cache: {"k", "v": (n_layers, B, L, d), "enc_out": (B, Se, d),
 "pos": int}; a step writes ``k`` and ``v`` in place.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +39,7 @@ from repro_torch.models.modules import (
     write_along_seq,
     zeros,
 )
+from repro_torch.models.transformer import remat
 
 DEC_POS = 448 * 128  # rows of the learned decoder position table
 
@@ -113,6 +116,7 @@ class EncDec(Params):
         self.enc_ln = _init_ln(gen, d, dtype)
         self.dec_layers = nn.ModuleList(DecLayer(gen, cfg, dtype) for _ in range(cfg.n_layers))
         self.dec_ln = _init_ln(gen, d, dtype)
+        self.cfg = cfg
 
 
 def init_encdec(cfg: ArchConfig, key: Key = 0, dtype=torch.float32, device=None) -> EncDec:
@@ -122,11 +126,15 @@ def init_encdec(cfg: ArchConfig, key: Key = 0, dtype=torch.float32, device=None)
 def encode(model: EncDec, frames: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """frames: precomputed conv-frontend embeddings (B, Se, D) [stub]."""
     x = frames + model.enc_pos[None, :frames.shape[1]].to(frames.dtype)
-    for lp in model.enc_layers:
+
+    def body(x, lp):
         h = _ln(lp.ln1, x)
         x = x + _mha(lp.attn, h, h, cfg.n_heads)
         h = _ln(lp.ln2, x)
-        x = x + gelu_mlp(lp.mlp, h)
+        return x + gelu_mlp(lp.mlp, h)
+
+    for lp in model.enc_layers:
+        x = remat(body, x, lp)
     return _ln(model.enc_ln, x)
 
 
@@ -142,13 +150,17 @@ def decode_train(model: EncDec, tokens: torch.Tensor, enc_out: torch.Tensor,
     x = F.embedding(tokens, model.embed) + model.dec_pos[None, :s].to(model.embed.dtype)
     ar = torch.arange(s, device=x.device)
     causal = additive_mask(ar[None, :] <= ar[:, None])[None, None]
-    for lp in model.dec_layers:
+
+    def body(x, lp, enc_out):
         h = _ln(lp.ln1, x)
         x = x + _mha(lp.self_attn, h, h, cfg.n_heads, causal)
         h = _ln(lp.ln_x, x)
         x = x + _mha(lp.cross_attn, h, enc_out, cfg.n_heads)
         h = _ln(lp.ln2, x)
-        x = x + gelu_mlp(lp.mlp, h)
+        return x + gelu_mlp(lp.mlp, h)
+
+    for lp in model.dec_layers:
+        x = remat(body, x, lp, enc_out)
     return _dec_logits(model, x)
 
 
@@ -221,6 +233,15 @@ def encdec_params_from_jax(cfg: ArchConfig, params_np: Dict, device=None) -> Enc
     tree["dec_layers"] = unstack(params_np["dec_layers"], cfg.n_layers)
     load_tree(model, tree)
     return model
+
+
+def encdec_jax_path(name: str) -> Tuple[Tuple, Optional[int]]:
+    """The JAX pytree path of the port parameter ``name`` and, for a leaf
+    of the stacked `enc_layers` / `dec_layers`, its layer index."""
+    parts = tuple(name.split("."))
+    if parts[0] in ("enc_layers", "dec_layers"):
+        return (parts[0],) + parts[2:], int(parts[1])
+    return parts, None
 
 
 def encdec_cache_from_jax(cache_np: Dict, device=None) -> Dict:

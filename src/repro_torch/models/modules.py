@@ -7,7 +7,8 @@ and layout: a linear weight is (d_in, d_out) and ``linear(x, w)`` is
 ``x @ w``, so weights carried over from JAX need no transpose. The
 initialisers draw from an explicit `torch.Generator` (their values
 differ from `jax.random`'s; parity tests carry JAX's weights over).
-Weights do not require grad: this is the serving slice.
+Weights require grad; the serving entry points run under
+``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -46,15 +47,14 @@ def dense_init(gen, d_in: int, d_out: int, dtype=torch.float32, scale=None) -> t
 
 
 class Params(nn.Module):
-    """Named weights as (grad-free) parameters, under the JAX package's
-    pytree keys; a ``None`` leaves the name unset (reads as ``None``).
-    Sub-dicts of the JAX pytree are sub-modules assigned as attributes."""
+    """Named weights as parameters, under the JAX package's pytree keys;
+    a ``None`` leaves the name unset (reads as ``None``). Sub-dicts of
+    the JAX pytree are sub-modules assigned as attributes."""
 
     def __init__(self, **tensors: Optional[torch.Tensor]):
         super().__init__()
         for name, t in tensors.items():
-            self.register_parameter(
-                name, None if t is None else nn.Parameter(t, requires_grad=False))
+            self.register_parameter(name, None if t is None else nn.Parameter(t))
 
 
 # ------------------------------------------------------------ carry-over

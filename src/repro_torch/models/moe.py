@@ -43,13 +43,11 @@ def _route(t: torch.Tensor, router: torch.Tensor, top_k: int):
 
 
 def _ragged_dot(x: torch.Tensor, w: torch.Tensor, bounds: List[int]) -> torch.Tensor:
-    """``jax.lax.ragged_dot``: rows [bounds[e], bounds[e+1]) of x times w[e]."""
-    out = x.new_empty((x.shape[0], w.shape[-1]))
-    for e in range(w.shape[0]):
-        a, b = bounds[e], bounds[e + 1]
-        if b > a:
-            torch.matmul(x[a:b], w[e].to(x.dtype), out=out[a:b])
-    return out
+    """``jax.lax.ragged_dot``: rows [bounds[e], bounds[e+1]) of x times w[e],
+    one product per non-empty group, concatenated (differentiable)."""
+    parts = [x[bounds[e]:bounds[e + 1]] @ w[e].to(x.dtype)
+             for e in range(w.shape[0]) if bounds[e + 1] > bounds[e]]
+    return torch.cat(parts) if parts else x.new_zeros((x.shape[0], w.shape[-1]))
 
 
 def _expert_compute(xs, gs, w_gate, w_up, w_down):

@@ -5,6 +5,10 @@ Port of repro/models/transformer.py for one device. JAX stacks the
 uniform tail of the layer stack and scans it (with remat); here every
 layer is a `Block` in an `nn.ModuleList`, looped in Python, in
 `layer_kinds` order (the head layers, then the tail's units unrolled).
+Where grad is enabled and no cache is given (training), each tail unit
+(one layer, or a hybrid's period) runs under activation checkpointing,
+as JAX's `jax.checkpoint(nothing_saveable)` scan body does: this changes
+memory, not values. The head layers are not checkpointed.
 Caches follow the same order: ``{"layers": [one cache dict per layer]}``,
 each with its own ``pos``, as each of JAX's per-layer caches has.
 
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
@@ -47,6 +52,7 @@ from repro_torch.models.modules import (
 )
 
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+REMAT = True  # JAX's REMAT_POLICY: a tail unit saves nothing but its input
 
 
 # ---------------------------------------------------------------- blocks
@@ -67,7 +73,7 @@ class Block(Params):
             self.attn = attn.init_mla(gen, cfg, dtype)
         else:
             self.attn = attn.init_gqa(gen, cfg, dtype)
-        self.ln2 = nn.Parameter(zeros(gen, (cfg.d_model,), dtype), requires_grad=False)
+        self.ln2 = nn.Parameter(zeros(gen, (cfg.d_model,), dtype))
         if kind == "moe":
             self.ffn = moe_mod.init_moe(gen, cfg, dtype)
         elif kind == "dense_ffn":
@@ -164,6 +170,7 @@ class LM(Params):
             unembed=None if cfg.tie_embeddings else dense_init(gen, cfg.d_model, cfg.vocab, dtype),
         )
         self.blocks = nn.ModuleList(Block(gen, cfg, k, dtype) for k in layer_kinds(cfg))
+        self.cfg = cfg
 
 
 def init_lm(cfg: ArchConfig, key: Key = 0, dtype=torch.float32, device=None) -> LM:
@@ -181,15 +188,36 @@ def _embed_inputs(model: LM, batch: Dict, cfg: ArchConfig) -> torch.Tensor:
     return tok_emb
 
 
+def remat(fn, *args):
+    """``fn(*args)`` under activation checkpointing where grad is enabled
+    (and `REMAT` is on): its activations are recomputed in the backward."""
+    if REMAT and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _run_blocks(model: LM, x, cfg: ArchConfig, positions, caches: Optional[Dict],
                 long_ctx: bool) -> Tuple[torch.Tensor, Optional[Dict]]:
     window = cfg.hybrid.local_window if cfg.hybrid else None
-    layers = caches["layers"] if caches is not None else [None] * len(model.blocks)
+    if caches is None:  # training / teacher forcing: remat each tail unit
+        head, unit, _ = _stack_plan(cfg)
+        blocks = list(model.blocks)
+        for blk in blocks[:len(head)]:
+            x, _ = block_apply(blk, x, cfg, positions, None, window, False)
+
+        def unit_apply(xu, unit_blocks):
+            for blk in unit_blocks:
+                xu, _ = block_apply(blk, xu, cfg, positions, None, window, False)
+            return xu
+
+        for i in range(len(head), len(blocks), len(unit)):
+            x = remat(unit_apply, x, blocks[i:i + len(unit)])
+        return x, None
     new_layers = []
-    for blk, c in zip(model.blocks, layers):
+    for blk, c in zip(model.blocks, caches["layers"]):
         x, c2 = block_apply(blk, x, cfg, positions, c, window, long_ctx)
         new_layers.append(c2)
-    return x, ({"layers": new_layers} if caches is not None else None)
+    return x, {"layers": new_layers}
 
 
 def _logits(model: LM, x, cfg: ArchConfig) -> torch.Tensor:
@@ -274,6 +302,22 @@ def lm_params_from_jax(cfg: ArchConfig, params_np: Dict, device=None) -> LM:
         raise ValueError(f"{len(layers)} JAX layers for {len(model.blocks)} blocks")
     load_tree(model, {**top, "blocks": layers})
     return model
+
+
+def lm_jax_path(cfg: ArchConfig, name: str) -> Tuple[Tuple, Optional[int]]:
+    """The JAX pytree path of the port parameter ``name`` (list indices as
+    ints) and, for a leaf of the stacked `tail_blocks`, its index along
+    the leading (layer) axis: ``blocks.5.attn.wq`` of a 1-layer unit with
+    one head layer is (("tail_blocks", "attn", "wq"), 4)."""
+    parts = tuple(name.split("."))
+    if parts[0] != "blocks":
+        return parts, None
+    head, unit, _ = _stack_plan(cfg)
+    i, rest = int(parts[1]), parts[2:]
+    if i < len(head):
+        return ("head_blocks", i) + rest, None
+    rep, sub = divmod(i - len(head), len(unit))
+    return ("tail_blocks",) + ((f"sub_{sub}",) if len(unit) > 1 else ()) + rest, rep
 
 
 def lm_cache_from_jax(cfg: ArchConfig, cache_np: Dict, device=None) -> Dict:

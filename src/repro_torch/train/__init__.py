@@ -1,1 +1,2 @@
-"""Step factories of the LLM stack (the serving half of repro/train)."""
+"""The LLM stack's step factories, loss and train state (port of
+repro/train)."""

@@ -417,10 +417,9 @@ def test_drift_never_fires_on_stationary_stream(fixed_probe, alpha):
     assert s["drift_flags"] == 0 and s["drift_reprobes"] == 0, s
 
 
-def test_drift_stream_matches_jax(fixed_probe):
-    """Both packages, the same stream, the same injected observations and
-    the same fixed probe costs: the same buckets, choices, flags,
-    re-probes and flips, decide by decide."""
+def _drift_twin():
+    """The drift stream through both packages' BatchSchedulers, with the
+    same injected observations: (port, JAX)."""
     kw = dict(n=1024, alpha_lo=0.2, alpha_hi=0.45, avg_deg=8, seed=2)
     stream = regime_shift_stream(64, 256, **kw)
     jstream = jx_gen.regime_shift_stream(64, 256, **kw)
@@ -431,12 +430,33 @@ def test_drift_stream_matches_jax(fixed_probe):
     for g in jstream:
         jbs.decide(g, 16, "spmm")
         jbs.observe(jbs.bucket_of(g, 16, "spmm"), _pinned_cost_ms(g))
+    return bs, jbs
+
+
+def test_drift_stream_matches_jax(fixed_probe):
+    """Both packages, the same stream, the same injected observations and
+    the same fixed probe costs: the same buckets, choices, flags,
+    re-probes and flips, decide by decide."""
+    bs, jbs = _drift_twin()
     keys = ("decides", "buckets", "probes_run", "pending_buckets", "drift_flags",
             "drift_reprobes", "drift_flips")
     assert {k: bs.stats()[k] for k in keys} == {k: jbs.stats()[k] for k in keys}
     assert bs.stats()["drift_flags"] >= 1
     assert ([(e["bucket"], e["choice"], e["source"]) for e in bs.trace]
             == [(e["bucket"], e["choice"], e["source"]) for e in jbs.trace])
+
+
+def test_counter_views_equal_jax_on_the_drift_twin(fixed_probe):
+    """The int properties over the counters read what JAX's read, and what
+    stats() reports."""
+    bs, jbs = _drift_twin()
+    names = ("drift_flags", "drift_reprobes", "drift_flips", "transfers",
+             "transfers_confirmed", "transfers_flipped", "transfer_probe_free")
+    got = {n: getattr(bs, n) for n in names}
+    assert all(type(v) is int for v in got.values()), got
+    assert got == {n: getattr(jbs, n) for n in names}
+    assert got == {n: bs.stats()[n] for n in names}
+    assert got["drift_flags"] >= 1
 
 
 def _force_flag(bs, g, f=16):

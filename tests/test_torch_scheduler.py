@@ -565,3 +565,50 @@ def test_legacy_csr_attention_pinned_fused_entry_replays(tmp_path, probe_kernels
     want = jx_ref.csr_attention_ref(csr.rowptr, csr.colind, *(x.numpy() for x in (q, k, v)))
     np.testing.assert_allclose(replay.build_runner(csr, d)(q, k, v).numpy(), np.asarray(want),
                                rtol=1e-4, atol=1e-4)
+
+
+# -------------------------------- AutoSage.spmm / .sddmm (deprecated)
+_ONE_CALL_MS = {"gather_segsum": 10.0, "gather_dot": 9.0, "dense": 8.0, "row_ell": 3.0,
+                "hub_split_ell": 5.0}
+
+
+def _one_call_ms(name):
+    return _ONE_CALL_MS.get(name.split("[")[0], 6.0)
+
+
+@pytest.mark.parametrize("op", ["spmm", "sddmm"])
+def test_one_call_spmm_sddmm_match_jax_and_warn(op, monkeypatch):
+    """`AutoSage.spmm` / `.sddmm` decide, build and run, returning (out,
+    decision) as the JAX package's do, with its DeprecationWarning naming
+    the port's facade. Each package's probe timer reads a fixed cost per
+    family, so both choose alike."""
+    from repro.core import AutoSage as JxSage
+    from repro.core import probe as jx_probe
+    from repro.sparse import hub_skew as jx_hub_skew
+    from repro_torch.core import probe as probe_mod
+
+    monkeypatch.delenv("AUTOSAGE_PROBE_PALLAS", raising=False)
+    monkeypatch.setattr(probe_mod, "time_callable", lambda fn, device, iters=1, cap_ms=0.0,
+                        name="?": probe_mod.ProbeResult(name, _one_call_ms(name),
+                                                        [_one_call_ms(name)], 1, False))
+    monkeypatch.setattr(jx_probe, "time_callable", lambda fn, iters=1, cap_ms=0.0, name="?":
+                        jx_probe.ProbeResult(name, _one_call_ms(name), [_one_call_ms(name)],
+                                             1, False))
+    csr = hub_skew(600, 4, 0.1, 40, seed=0)
+    jcsr = jx_hub_skew(600, 4, 0.1, 40, seed=0)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((csr.n_rows, 16)).astype(np.float32)
+    y = rng.standard_normal((csr.n_cols, 16)).astype(np.float32)
+    sage = AutoSage(cache=ScheduleCache(path=None), device="cpu", probe_iters=1,
+                    probe_cap_ms=25)
+    jsage = JxSage(cache=JxCache(path=None), probe_iters=1, probe_cap_ms=25)
+    args = (torch.from_numpy(y),) if op == "spmm" else (torch.from_numpy(x),
+                                                        torch.from_numpy(y))
+    with pytest.warns(DeprecationWarning,
+                      match=f"AutoSage.{op} is deprecated; use repro_torch.api.{op}"):
+        out, d = getattr(sage, op)(csr, *args)
+    with pytest.warns(DeprecationWarning, match=f"AutoSage.{op} is deprecated; use repro.api"):
+        jout, jd = getattr(jsage, op)(jcsr, *(a.numpy() for a in args))
+    assert d.choice == jd.choice == "row_ell" and d.op == jd.op == op
+    assert set(d.probe_ms) == set(jd.probe_ms)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=1e-5, atol=1e-5)
