@@ -284,6 +284,51 @@ order; any failure raises and the script exits non-zero:
       committed; its arrays within 1e-6 of max |ref| of an
       uninterrupted run's (launch.train.main in-process). **Cut:**
       reduced size, since a full-width checkpoint is 46 GB.
+16. The multi-device paths (distributed/, launch/mesh.py,
+   optim/compress.py, the EP MoE, the sharded CSR window attention, the
+   steps and launchers on a mesh), 4 ranks sharing the one card over
+   gloo (fewer cards than local ranks), fp32 (TF32 off); no hand-written
+   kernel is on these paths. a-c run in one `python -m
+   torch.distributed.run --nproc-per-node 4 chip_smoke.py --mesh-legs
+   DIR` process group, each leg printing its times, errors and every
+   rank's peak memory:
+   a. One MoE layer of configs/qwen3_moe_235b_a22b at its published
+      widths (d_model 4096, 128 experts, top-8, d_expert 1536), experts
+      drawn per expert from seeded generators, on mesh (1, 2, 2): each
+      rank holds 64 experts x half the hidden width (2.42 GB) and 4 x
+      512 of the 8 x 512 tokens. Capacity factor 2 (the 'data' size, so
+      nothing drops): the output and dx within RTOL / 1e-3 of max |ref|
+      of moe_ffn_ref over the whole experts (9.66 GB, rank 0), each
+      slice's gradient of sum(out * r) within 1e-3 of a plain loop over
+      the rank's experts. Then the default capacity factor (1.25) with
+      every token routed to data rank 0's experts: the card within RTOL
+      of the same ranks on the CPU, the drop counts equal.
+   b. csr_window_attention_sharded at configs/qwen3_14b's widths over
+      the long_500k cache (batch 1, 524,288 positions, bf16, filled from
+      seeded generators) in 4 slices of 131,072: decode at pos 524,272
+      and at 262,144 (a slice's first row) within RTOL of
+      csr_window_attention over the whole cache on rank 0 (its values in
+      fp32, so that path's probabilities are not rounded to bf16; the
+      sharded path rounds the new token's k/v row to the cache's bf16,
+      which the output, an average of ~4,200 random rows, shows at
+      ~5e-5 of its max); only the owning slice writes its row; the
+      step's time.
+   c. compressed_psum over 'pod' on (4, 1, 1), one 5120 x 17408 fp32
+      tensor (Qwen3-14B's w_up) per rank: err1 after one reduction, the
+      drift after 20 with error feedback, which must be below err1 / 2.
+   d. `python -m torch.distributed.run --nproc-per-node 4 -m
+      repro_torch.launch.train --arch qwen3_moe_235b_a22b --reduced
+      --steps 8 --ckpt-every 2 --crash-at 5`, resumed with 2 ranks;
+      the final loss within 1e-4 (as printed) of a one-rank run's
+      (REPRO_MOE_CF=8 in all three), its moments within 1e-4 of max
+      |ref| and its weights within 2 lr per step (AdamW's first steps
+      move a weight whose gradient is at rounding level by ~lr of either
+      sign).
+      **Cut:** reduced widths (four replicated full-width states would
+      not fit on one card).
+   e. `demo-lm --arch qwen3_14b --reduced --long-ctx` with
+      REPRO_LONG_ATTN=sharded on 4 ranks: rank 0's greedy tokens equal a
+      one-rank run's.
 
 The main path is every forward of phases 3, 4 and 6, every training
 step of phases 8, 9 and 11, the ops chain of phase 10, the runner
@@ -2556,12 +2601,13 @@ def transfer_phase(device, workdir: Path, totals: dict) -> None:
         f"{d_on.transfer['rank_agreement']}, donor choice {d_on.transfer['peer_choice']}")
 
 
-def _run_cmd(cmd, timeout_s):
-    """Run ``cmd`` in a session of its own; on timeout kill the whole
-    group (the fleet's workers too). Returns (rc, stdout, stderr)."""
+def _run_cmd(cmd, timeout_s, env=None):
+    """Run ``cmd`` in a session of its own, with ``env`` added to the
+    environment; on timeout kill the whole group (the fleet's workers,
+    a torch.distributed.run's ranks too). Returns (rc, stdout, stderr)."""
     import signal
 
-    envv = {**os.environ, "PYTHONPATH": os.pathsep.join(
+    envv = {**os.environ, **(env or {}), "PYTHONPATH": os.pathsep.join(
         p for p in (str(SRC), os.environ.get("PYTHONPATH")) if p)}
     proc = subprocess.Popen(cmd, env=envv, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, start_new_session=True)
@@ -3563,8 +3609,617 @@ def lm_training_phase(device, workdir: Path) -> None:
         log(f"== phase {label}: {time.perf_counter() - t0:.1f} s")
 
 
+# ----------------------------------------------------------- phase 16
+MESH_RANKS = 4  # ranks sharing the one card (gloo: fewer cards than local ranks)
+MESH_TIMEOUT_S = 420
+MOE_ARCH = "qwen3_moe_235b_a22b"  # configs/qwen3_moe_235b_a22b at its published widths
+MOE_ROWS, MOE_SEQ = 8, 512
+MOE_CF = 2.0  # the 'data' size: cap = n * top_k, nothing drops
+MOE_GRAD_RTOL = 1e-3
+MOE_MESH = {"pod": 1, "data": 2, "model": 2}
+PSUM_SHAPE = (5120, 17408)  # configs/qwen3_14b w_up
+PSUM_STEPS = 20
+ATTN_TIMING_REPS = 5
+MESH_TRAIN_ARGS = ("--arch", MOE_ARCH, "--reduced", "--steps", "8", "--ckpt-every", "2")
+CLI_RTOL_MESH = 1e-4  # a mesh run's moments vs one rank's: sums in another order
+# AdamW moves a weight by at most lr per step whatever its gradient, so
+# where a gradient is at rounding level (the two runs sum in other
+# orders, the card's embedding backward with atomics) the runs' weights
+# may part by up to 2 lr per step: 8 steps at the launcher's lr 3e-4
+CLI_ATOL_WEIGHTS = 2 * 3e-4 * 8
+MESH_DEMO_ARGS = ("demo-lm", "--arch", LM_ARCH, "--reduced", "--long-ctx", "--prompt-len", "24",
+                  "--gen", "8")  # 4 cache slices of 8 positions: decode starts on a boundary
+
+
+def _rank_log(*args) -> None:
+    from repro_torch.distributed import collectives
+
+    if collectives.rank() == 0:
+        log(*args)
+
+
+def _rel(got, want) -> float:
+    """max |got - want| / max |want|, in float64 on got's device."""
+    got, want = got.double(), want.double().to(got.device)
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def _peaks(label, device) -> None:
+    """Every rank's peak device memory since the last reset, allocated and
+    reserved by its caching allocator, on rank 0."""
+    import torch
+
+    from repro_torch.distributed import collectives
+
+    if device.type != "cuda":
+        return
+    mine = torch.tensor([torch.cuda.max_memory_allocated(device) / 1e9,
+                         torch.cuda.max_memory_reserved(device) / 1e9], device=device)
+    world = collectives.all_gather(mine[None], _WORLD_MESH[0], "data", dim=0)
+    _rank_log(f"{label}: peak device memory per rank {[round(float(v), 2) for v in world[:, 0]]} "
+              f"GB allocated, {[round(float(v), 2) for v in world[:, 1]]} GB reserved")
+
+
+_WORLD_MESH = []  # (1, world, 1): the peak-memory gather's mesh
+
+
+def _experts(cfg, which, lo, hi, f_cols, device):
+    """Experts lo..hi-1 of w_gate (0), w_up (1) or w_down (2), columns (rows
+    of w_down) ``f_cols`` of the expert hidden dimension; each expert is
+    drawn whole from a generator of its own seed, so a rank draws its
+    slice alone and the reference the same values."""
+    import torch
+
+    d, fe = cfg.d_model, cfg.moe.d_expert
+    out = []
+    for e in range(lo, hi):
+        g = torch.Generator(device=device).manual_seed(1_000_000 * (which + 1) + e)
+        if which < 2:
+            w = torch.randn((d, fe), generator=g, device=device) * (1 / d) ** 0.5
+            out.append(w[:, f_cols].clone())
+        else:
+            w = torch.randn((fe, d), generator=g, device=device) * (1 / fe) ** 0.5
+            out.append(w[f_cols].clone())
+        del w
+    return torch.stack(out)
+
+
+def _moe_router(cfg, device, overflow=False):
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(7)
+    d, e = cfg.d_model, cfg.moe.n_experts
+    router = torch.randn((d, e), generator=g, device=device) * (1 / d) ** 0.5
+    if overflow:  # every token prefers the experts of data rank 0
+        router[:, :e // 2] += 4.0 * torch.ones(d, device=device)[:, None] / d ** 0.5
+    return router
+
+
+def _moe_inputs(cfg, device, overflow=False):
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn((MOE_ROWS, MOE_SEQ, cfg.d_model), generator=g, device=device)
+    r = torch.randn(x.shape, generator=g, device=device)
+    if overflow:
+        x = x + 3.0 * torch.ones(cfg.d_model, device=device) / cfg.d_model ** 0.5
+    return x, r
+
+
+def _drops(params, x, cfg, mesh, cf) -> tuple:
+    """(copies dropped, copies kept but not written) of a dispatch,
+    summed over the ranks."""
+    import torch
+
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import mesh_shape
+    from repro_torch.models import moe
+
+    n_data = mesh_shape(mesh)["data"]
+    t = x.reshape(-1, cfg.d_model)
+    _, ids = moe._route(t, params.router, cfg.moe.top_k)
+    cap = moe.capacity(t.shape[0], cfg.moe.top_k, n_data, cf)
+    *_, keep, written = moe.dispatch_plan(ids.reshape(-1), cfg.moe.n_experts // n_data, n_data,
+                                          cap)
+    counts = torch.stack([(~keep).sum(), (keep & ~written).sum()]).cpu()
+    counts = collectives.psum(counts, _WORLD_MESH[0], "data")
+    return int(counts[0]), int(counts[1])
+
+
+def _slice_grad_errs(params, x, r, cfg, lo) -> float:
+    """The largest max |grad - ref| / max |ref| over this rank's three
+    expert slices, their gradients from the EP backward (``.grad``)
+    against a plain loop over its experts and the tokens routed to each
+    (no dispatch buffers), one expert at a time: no second copy of the
+    slices or of their gradients is held."""
+    import torch
+    import torch.nn.functional as F
+
+    names = ("w_gate", "w_up", "w_down")
+    t, rt = x.reshape(-1, cfg.d_model), r.reshape(-1, cfg.d_model)
+    with torch.no_grad():
+        probs = torch.softmax(t.float() @ params.router, dim=-1)
+        gates, ids = torch.topk(probs, cfg.moe.top_k, dim=-1)
+        gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    diff, peak = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0.0)
+    for e in range(params.w_gate.shape[0]):
+        w = [params.get_parameter(n)[e].detach().requires_grad_(True) for n in names]
+        tok, slot = (ids == lo + e).nonzero(as_tuple=True)
+        if tok.numel():
+            h = F.silu(t[tok] @ w[0]) * (t[tok] @ w[1])
+            want = torch.autograd.grad(
+                ((h @ w[2]) * rt[tok] * gates[tok, slot, None]).sum(), w)
+        else:
+            want = [torch.zeros_like(v) for v in w]
+        for n, g in zip(names, want):
+            got = params.get_parameter(n).grad[e]
+            diff[n] = max(diff[n], float((got.double() - g.double()).abs().max()))
+            peak[n] = max(peak[n], float(g.abs().max()))
+    errs = {n: diff[n] / max(peak[n], 1e-30) for n in names}
+    for n, err in errs.items():
+        if err > MOE_GRAD_RTOL:
+            raise AssertionError(f"16a: d{n} slice off by {err:.3e} of max |ref|")
+    return max(errs.values())
+
+
+def _moe_config():
+    from repro_torch.configs import get_config
+
+    return get_config(MOE_ARCH)
+
+
+def ep_moe_leg(mesh, device) -> None:
+    """16a: one MoE layer of Qwen3-MoE-235B-A22B at its published widths,
+    expert parallel on (1, 2, 2); see the module docstring."""
+    import torch
+
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import batch_axes_for
+    from repro_torch.models import moe
+    from repro_torch.models.modules import Params
+
+    cfg = _moe_config()
+    mo = cfg.moe
+    di, mi = mesh.get_local_rank("data"), mesh.get_local_rank("model")
+    e_loc, f_loc = mo.n_experts // MOE_MESH["data"], mo.d_expert // MOE_MESH["model"]
+    lo, cols = di * e_loc, slice(mi * f_loc, (mi + 1) * f_loc)
+    t0 = time.perf_counter()
+    params = Params(router=_moe_router(cfg, device),
+                    **{n: _experts(cfg, i, lo, lo + e_loc, cols, device)
+                       for i, n in enumerate(("w_gate", "w_up", "w_down"))})
+    x, r = _moe_inputs(cfg, device)
+    ba = batch_axes_for(MOE_ROWS, mesh)
+    rows = collectives.rows(MOE_ROWS, mesh, ba)
+    xl = x[rows].clone().requires_grad_(True)
+    sync(device)
+    slice_gb = sum(params.get_parameter(n).numel() for n in ("w_gate", "w_up", "w_down")) * 4e-9
+    _rank_log(f"16a {MOE_ARCH}: d_model {cfg.d_model}, {mo.n_experts} experts, top-{mo.top_k}, "
+              f"d_expert {mo.d_expert}; {MOE_ROWS} x {MOE_SEQ} tokens; mesh {MOE_MESH}; each "
+              f"rank's slice {slice_gb:.2f} GB ({time.perf_counter() - t0:.1f} s to draw)")
+    cap = moe.capacity(xl.shape[0] * MOE_SEQ, mo.top_k, MOE_MESH["data"], MOE_CF)
+    times = []
+    for _ in range(2):
+        collectives.barrier()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = moe.moe_ffn_ep(params, xl, cfg, mesh, capacity_factor=MOE_CF)
+        sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    drops = _drops(params, xl.detach(), cfg, mesh, MOE_CF)
+    if drops != (0, 0):
+        raise AssertionError(f"16a: capacity factor {MOE_CF} dropped copies: {drops}")
+    collectives.barrier()
+    t0 = time.perf_counter()
+    out = moe.moe_ffn_ep(params, xl, cfg, mesh, capacity_factor=MOE_CF)
+    (out * r[rows]).sum().backward()
+    sync(device)
+    fb_ms = (time.perf_counter() - t0) * 1e3
+    _rank_log(f"16a EP forward (cap {cap} slots per destination, no drops): "
+              f"{times[0]:.1f} / {times[1]:.1f} ms; forward + backward {fb_ms:.1f} ms "
+              f"(4 ranks sharing one card, host clock after a sync)")
+    # the slices' gradients against a plain loop over this rank's experts
+    w_err = torch.tensor([_slice_grad_errs(params, x, r, cfg, lo)], device=device)
+    w_err = collectives.pmax(w_err, _WORLD_MESH[0], "data")
+    out_all = collectives.all_gather(out.detach(), mesh, "data", dim=0)
+    gx_all = collectives.all_gather(xl.grad, mesh, "data", dim=0)
+    del params, out, xl
+    _empty_cache(device)
+    if collectives.rank() == 0:  # the whole experts, 9.66 GB, on rank 0 only
+        full = Params(router=_moe_router(cfg, device),
+                      **{n: _experts(cfg, i, 0, mo.n_experts, slice(None), device)
+                         for i, n in enumerate(("w_gate", "w_up", "w_down"))})
+        for p in full.parameters():
+            p.requires_grad_(False)
+        xr = x.clone().requires_grad_(True)
+        want = moe.moe_ffn_ref(full, xr, cfg)
+        (want * r).sum().backward()
+        err, gerr = _rel(out_all, want), _rel(gx_all, xr.grad)
+        full_gb = sum(p.numel() for p in full.parameters()) * 4e-9
+        del full, want, xr
+        _empty_cache(device)
+        if err > RTOL or gerr > MOE_GRAD_RTOL:
+            raise AssertionError(f"16a: EP vs moe_ffn_ref: out {err:.3e}, dx {gerr:.3e}")
+        log(f"16a EP output within {RTOL} of moe_ffn_ref over the whole experts "
+            f"({full_gb:.2f} GB, rank 0) (max err {err:.3e} of max |ref|); dx within "
+            f"{MOE_GRAD_RTOL} ({gerr:.3e}); expert slices' gradients within {MOE_GRAD_RTOL} "
+            f"of a plain loop over each rank's experts (max {float(w_err[0]):.3e})")
+    collectives.barrier()
+    _peaks("16a (fp32, capacity factor 2)", device)
+    ep_overflow_leg(mesh, device, cfg, lo, e_loc, cols, ba, rows)
+
+
+def ep_overflow_leg(mesh, device, cfg, lo, e_loc, cols, ba, rows) -> None:
+    """16a at the default capacity factor (REPRO_MOE_CF unset: 1.25), the
+    router made to send every token to data rank 0's experts: the card's
+    output against the same 4 ranks on the CPU."""
+    import torch
+
+    from repro_torch.distributed import collectives
+    from repro_torch.models import moe
+    from repro_torch.models.modules import Params
+
+    cf = float(os.environ.get("REPRO_MOE_CF", "1.25"))
+    x, _ = _moe_inputs(cfg, device, overflow=True)
+    xl = x[rows].contiguous()
+    del x
+    params = Params(router=_moe_router(cfg, device, overflow=True),
+                    **{n: _experts(cfg, i, lo, lo + e_loc, cols, device)
+                       for i, n in enumerate(("w_gate", "w_up", "w_down"))})
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = moe.moe_ffn(params, xl, cfg, mesh)
+    sync(device)
+    card_ms = (time.perf_counter() - t0) * 1e3
+    drops = _drops(params, xl, cfg, mesh, cf)
+    cpu = torch.device("cpu")
+    params_cpu = Params(**{n: params.get_parameter(n).detach().to(cpu)
+                           for n in ("router", "w_gate", "w_up", "w_down")})
+    out_card = out.cpu()
+    del params, out
+    _empty_cache(device)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = moe.moe_ffn(params_cpu, xl.cpu(), cfg, mesh)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    drops_cpu = _drops(params_cpu, xl.cpu(), cfg, mesh, cf)
+    err = torch.tensor([_rel(out_card, want)])
+    err = float(collectives.pmax(err, _WORLD_MESH[0], "data")[0])
+    if err > RTOL or drops != drops_cpu or drops[0] == 0:
+        raise AssertionError(f"16a overflow: card vs CPU {err:.3e}, drops card {drops} "
+                             f"CPU {drops_cpu}")
+    _rank_log(f"16a overflow (capacity factor {cf}, every token routed to data rank 0's "
+              f"experts): the card within {RTOL} of the same 4 ranks on the CPU (max err "
+              f"{err:.3e} of max |ref|); dropped copies {drops[0]} / {drops_cpu[0]}, kept "
+              f"copies lost to the overflow slot {drops[1]} / {drops_cpu[1]} (card / CPU); "
+              f"{card_ms:.1f} ms on the card, {cpu_ms:.1f} ms on the CPU")
+
+
+def _kv_chunks(length, chunk, lo, hi, heads, dh, device, which):
+    """Rows lo..hi-1 of a (1, length, heads, dh) bf16 cache, each chunk of
+    ``chunk`` rows from a generator of its own seed (zeros past
+    length - LONG_STEPS, as phase 14b leaves them)."""
+    import torch
+
+    pos0 = length - LONG_STEPS
+    out = torch.zeros((1, hi - lo, heads, dh), dtype=torch.bfloat16, device=device)
+    for c in range(lo // chunk, hi // chunk):
+        g = torch.Generator(device=device).manual_seed(10_000 * which + c)
+        part = torch.randn((1, chunk, heads, dh), generator=g, device=device)
+        a, b = c * chunk, min((c + 1) * chunk, pos0)
+        if b > a:
+            out[:, a - lo:b - lo] = part[:, :b - a].to(torch.bfloat16)
+    return out
+
+
+def sharded_attention_leg(mesh, device) -> None:
+    """16b: csr_window_attention_sharded at Qwen3-14B's widths over the
+    long_500k cache split over 4 ranks, against csr_window_attention over
+    the whole cache on rank 0."""
+    import torch
+
+    from repro_torch.distributed import collectives
+    from repro_torch.models import attention as attn
+
+    cfg = _lm_config(1)
+    length, batch = _long_shape()
+    hkv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    n = MESH_RANKS
+    l_loc = length // n
+    offset = collectives.axis_index(mesh, ("data", "model")) * l_loc
+    chunk = l_loc // 4
+    t0 = time.perf_counter()
+    k_loc = _kv_chunks(length, chunk, offset, offset + l_loc, hkv, dh, device, 1)
+    v_loc = _kv_chunks(length, chunk, offset, offset + l_loc, hkv, dh, device, 2)
+    params = attn.init_gqa(torch.Generator(device=device).manual_seed(5), cfg)
+    sync(device)
+    _rank_log(f"16b {LM_ARCH} {LONG_SHAPE}: batch {batch}, {length} positions in {n} slices "
+              f"of {l_loc} (bf16 k + v {2 * k_loc.numel() * 2 / 1e9:.2f} GB per rank), filled "
+              f"from seeded generators ({time.perf_counter() - t0:.1f} s)")
+    full = None
+    if collectives.rank() == 0:  # the same values in fp32: the plain path would round
+        # its probabilities to a bf16 cache's dtype, the sharded one keeps them fp32
+        full = {"k": _kv_chunks(length, chunk, 0, length, hkv, dh, device, 1).float(),
+                "v": _kv_chunks(length, chunk, 0, length, hkv, dh, device, 2).float()}
+    g = torch.Generator(device=device).manual_seed(6)
+    for pos in (length - LONG_STEPS, length // 2):  # the last slice; a slice's first row
+        x = torch.randn((batch, 1, cfg.d_model), generator=g, device=device)
+        positions = torch.full((batch, 1), pos, device=device)
+        before = k_loc.clone()
+        with torch.no_grad():
+            out, new = attn.csr_window_attention_sharded(
+                params, x, cfg, positions, {"k": k_loc, "v": v_loc, "pos": pos}, mesh)
+        changed = ((new["k"] != before).any(dim=(0, 2, 3)).nonzero().flatten() + offset).tolist()
+        owner = offset <= pos < offset + l_loc
+        if changed != ([pos] if owner else []) or new["pos"] != pos + 1:
+            raise AssertionError(f"16b pos {pos}: rows written {changed} on the slice at "
+                                 f"{offset}")
+        del before
+        ms = []
+        for _ in range(ATTN_TIMING_REPS):
+            collectives.barrier()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                attn.csr_window_attention_sharded(params, x, cfg, positions,
+                                                  {"k": k_loc, "v": v_loc, "pos": pos}, mesh)
+            sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if full is not None:
+            with torch.no_grad():
+                want, _ = attn.csr_window_attention(params, x, cfg, positions,
+                                                    dict(full, pos=pos))
+            err = _rel(out, want)
+            if err > RTOL:
+                raise AssertionError(f"16b pos {pos}: sharded vs whole cache {err:.3e}")
+            log(f"16b decode at pos {pos} (slice {pos // l_loc}): within {RTOL} of "
+                f"csr_window_attention over the whole cache (its values in fp32) (max err "
+                f"{err:.3e} of max |ref|); "
+                f"only the owning slice wrote its row; step {statistics.median(ms):.2f} ms "
+                f"median of {ATTN_TIMING_REPS} (4 ranks sharing one card, not a scaling "
+                f"number)")
+        collectives.barrier()
+    del full, k_loc, v_loc
+    _empty_cache(device)
+    _peaks("16b", device)
+
+
+def compressed_psum_leg(mesh, device) -> None:
+    """16c: compressed_psum over 'pod' on (4, 1, 1), a w_up-sized tensor per
+    rank: one reduction, then PSUM_STEPS with error feedback (the JAX
+    package's test_compressed_psum_error_feedback)."""
+    import torch
+
+    from repro_torch.distributed import collectives
+    from repro_torch.optim import compress
+
+    me = collectives.axis_index(mesh, "pod")
+    x = torch.randn(PSUM_SHAPE, generator=torch.Generator(device=device).manual_seed(300 + me),
+                    device=device)
+    exact = collectives.psum(x, mesh, "pod") / MESH_RANKS
+    ef = torch.zeros_like(x)
+    collectives.barrier()
+    t0 = time.perf_counter()
+    out, ef = compress.compressed_psum(x, mesh, "pod", ef)
+    sync(device)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    err1 = float((out - exact).abs().max())
+    accum = torch.zeros_like(x)
+    t0 = time.perf_counter()
+    for _ in range(PSUM_STEPS):
+        out, ef = compress.compressed_psum(x, mesh, "pod", ef)
+        accum += out
+    sync(device)
+    step_ms = (time.perf_counter() - t0) * 1e3 / PSUM_STEPS
+    drift = float((accum / PSUM_STEPS - exact).abs().max())
+    if not drift < err1 / 2 + 1e-6:
+        raise AssertionError(f"16c: drift {drift:.3e} not below err1 / 2 ({err1:.3e})")
+    _rank_log(f"16c compressed_psum of {PSUM_SHAPE[0]} x {PSUM_SHAPE[1]} fp32 "
+              f"({x.numel() * 4 / 1e9:.2f} GB) per rank over 'pod' (4): err1 {err1:.4e}, "
+              f"drift after {PSUM_STEPS} error-feedback steps {drift:.4e} (< err1 / 2); "
+              f"{first_ms:.1f} ms first, {step_ms:.1f} ms per step")
+    del x, exact, ef, accum, out
+    _empty_cache(device)
+    _peaks("16c", device)
+
+
+def mesh_rank_main(workdir: Path) -> int:
+    """One rank of phase 16a-c, started by torch.distributed.run."""
+    import torch
+
+    from repro_torch.distributed import collectives
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    device = collectives.init()
+    _WORLD_MESH.append(make_host_mesh())
+    moe_mesh = make_mesh(MOE_MESH)
+    legs = (("16a (EP MoE, full width)", ep_moe_leg, moe_mesh),
+            ("16b (sharded CSR window attention, full width)", sharded_attention_leg, moe_mesh),
+            ("16c (int8 error-feedback psum)", compressed_psum_leg,
+             make_mesh({"pod": MESH_RANKS, "data": 1, "model": 1})))
+    for label, fn, mesh in legs:
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        fn(mesh, device)
+        _rank_log(f"== phase {label}: {time.perf_counter() - t0:.1f} s")
+    collectives.finish()
+    return 0
+
+
+@contextlib.contextmanager
+def _process_memory(label):
+    """Samples nvidia-smi every half second while the block runs and logs
+    the card's largest memory in use (every process on it, CUDA contexts
+    included) and each listed process's largest: the peak of a
+    torch.distributed.run, whose ranks are processes of their own."""
+    import threading
+
+    peaks: dict = {}
+    card = {"used": 0, "total": 0}
+    stop = threading.Event()
+
+    def smi(query):
+        try:
+            return subprocess.run(["nvidia-smi", query, "--format=csv,noheader,nounits"],
+                                  capture_output=True, text=True, timeout=10).stdout
+        except (OSError, subprocess.TimeoutExpired):
+            return ""
+
+    def poll():
+        while not stop.wait(0.5):
+            for ln in smi("--query-compute-apps=pid,used_memory").splitlines():
+                parts = [p.strip() for p in ln.split(",")]
+                if len(parts) == 2 and parts[1].isdigit():
+                    peaks[parts[0]] = max(peaks.get(parts[0], 0), int(parts[1]))
+            first = (smi("--query-gpu=memory.used,memory.total").splitlines() or [""])[0]
+            parts = [p.strip() for p in first.split(",")]
+            if len(parts) == 2 and all(p.isdigit() for p in parts):
+                card["used"], card["total"] = max(card["used"], int(parts[0])), int(parts[1])
+
+    thread = threading.Thread(target=poll, daemon=True)
+    thread.start()
+    try:
+        yield
+    finally:
+        stop.set()
+        thread.join(timeout=15)
+        got = sorted(round(v / 1024, 2) for v in peaks.values())
+        used = (f"{card['used'] / 1024:.2f} of {card['total'] / 1024:.2f} GiB" if card["total"]
+                else "not measured")
+        log(f"{label}: the card's memory in use at most {used}; per process listed "
+            f"{got if got else 'not measured (no process listed)'} GiB (nvidia-smi, max of "
+            f"0.5 s samples)")
+
+
+def _cli_losses(out: str) -> dict:
+    import re
+
+    return {int(m.group(1)): float(m.group(2))
+            for m in re.finditer(r"\[train\] step=(\d+) loss=(\S+)", out)}
+
+
+def mesh_train_leg(device, workdir: Path) -> None:
+    """16d: launch.train on 4 ranks with a crash at step 5, resumed on 2
+    ranks, against one rank's uninterrupted run."""
+    import numpy as np
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch import train
+
+    env = {"REPRO_MOE_CF": "8"}
+    ck, ref = workdir / "mesh_ck", workdir / "mesh_ref"
+    run = [sys.executable, "-m", "torch.distributed.run", "--standalone"]
+    cmd = ["-m", "repro_torch.launch.train", *MESH_TRAIN_ARGS, "--ckpt-dir", str(ck)]
+    t0 = time.perf_counter()
+    with _process_memory(f"16d crash run, {MESH_RANKS} ranks"):
+        rc, out, err = _run_cmd(run + [f"--nproc-per-node={MESH_RANKS}", *cmd, "--crash-at",
+                                       "5"], MESH_TIMEOUT_S, env)
+    for ln in out.splitlines():
+        log(f"16d   {ln}")
+    if rc == 0 or "[train] simulating crash at step 5" not in out or ckpt.latest_step(str(ck)) != 4:
+        raise AssertionError(f"16d crash run: rc {rc}, latest {ckpt.latest_step(str(ck))}: "
+                             f"{err[-2000:]}")
+    log(f"16d {MESH_RANKS} ranks, crash at step 5: latest committed step 4 "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    with _process_memory("16d resume, 2 ranks"):
+        rc, out, err = _run_cmd(run + ["--nproc-per-node=2", *cmd], MESH_TIMEOUT_S, env)
+    for ln in out.splitlines():
+        log(f"16d   {ln}")
+    if rc != 0 or "[train] resumed from step 4" not in out or ckpt.latest_step(str(ck)) != 8:
+        raise AssertionError(f"16d resume on 2 ranks: rc {rc}: {err[-2000:]}")
+    log(f"16d resumed on 2 ranks from step 4 to 8 ({time.perf_counter() - t0:.1f} s)")
+    old = os.environ.get("REPRO_MOE_CF")
+    os.environ["REPRO_MOE_CF"] = "8"
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = train.main([*MESH_TRAIN_ARGS, "--ckpt-dir", str(ref), "--device", str(device)])
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_MOE_CF")
+        else:
+            os.environ["REPRO_MOE_CF"] = old
+    if rc != 0:
+        raise AssertionError(f"16d: the one-rank run exited {rc}")
+    got, want = _cli_losses(out)[7], _cli_losses(buf.getvalue())[7]
+    if abs(got - want) > 1e-4 + 1e-9:
+        raise AssertionError(f"16d final loss {got} vs one rank's {want}")
+    worst, worst_w = 0.0, 0.0
+    with np.load(ck / "step_00000008" / "arrays.npz") as a, \
+            np.load(ref / "step_00000008" / "arrays.npz") as b:
+        for k in b.files:
+            if k.startswith(".params/"):  # AdamW: at most lr per step, whatever the gradient
+                w = float(np.abs(a[k].astype(np.float64) - b[k]).max())
+                if w > CLI_ATOL_WEIGHTS:
+                    raise AssertionError(f"16d {k}: max err {w:.3e} > {CLI_ATOL_WEIGHTS}")
+                worst_w = max(worst_w, w)
+            else:
+                worst = max(worst, _rel_err(f"16d {k}", a[k], b[k], CLI_RTOL_MESH))
+    log(f"16d final loss {got:.4f} (one rank {want:.4f}, within 1e-4 as printed); weights "
+        f"within {CLI_ATOL_WEIGHTS:.1e} (max {worst_w:.3e}), moments and counts within "
+        f"{CLI_RTOL_MESH} of max |ref| (max {worst:.3e}) of the one-rank run's")
+
+
+def mesh_demo_leg(device, workdir: Path) -> None:
+    """16e: demo-lm --long-ctx with REPRO_LONG_ATTN=sharded on 4 ranks
+    against one rank."""
+    from repro_torch.launch import serve
+
+    env = {"REPRO_LONG_ATTN": "sharded"}
+    t0 = time.perf_counter()
+    with _process_memory(f"16e demo-lm, {MESH_RANKS} ranks"):
+        rc, out, err = _run_cmd([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                 f"--nproc-per-node={MESH_RANKS}", "-m",
+                                 "repro_torch.launch.serve", *MESH_DEMO_ARGS], MESH_TIMEOUT_S,
+                                env)
+    for ln in out.splitlines():
+        log(f"16e   {ln}")
+    if rc != 0:
+        raise AssertionError(f"16e demo-lm on {MESH_RANKS} ranks: rc {rc}: {err[-2000:]}")
+    wall = time.perf_counter() - t0
+    old = os.environ.get("REPRO_LONG_ATTN")
+    os.environ["REPRO_LONG_ATTN"] = "sharded"
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = serve.main([*MESH_DEMO_ARGS, "--device", str(device)])
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_LONG_ATTN")
+        else:
+            os.environ["REPRO_LONG_ATTN"] = old
+    tokens = [ln for ln in out.splitlines() if "sample generations" in ln]
+    want = [ln for ln in buf.getvalue().splitlines() if "sample generations" in ln]
+    if rc != 0 or len(tokens) != 1 or tokens != want:
+        raise AssertionError(f"16e: {tokens} vs one rank's {want}")
+    log(f"16e demo-lm on {MESH_RANKS} ranks (the cache's sequence split, sharded CSR window "
+        f"decode): greedy tokens equal one rank's ({wall:.1f} s)")
+
+
+def mesh_phase(device, workdir: Path) -> None:
+    """Phase 16: the multi-device paths, 4 ranks on the one card."""
+    t0 = time.perf_counter()
+    with _process_memory(f"16a-c, {MESH_RANKS} ranks"):
+        rc, out, err = _run_cmd([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                 f"--nproc-per-node={MESH_RANKS}", str(REPO / "chip_smoke.py"),
+                                 "--mesh-legs", str(workdir)], MESH_TIMEOUT_S)
+    for ln in out.splitlines():
+        log(ln)
+    if rc != 0:
+        raise AssertionError(f"phase 16a-c: rc {rc}: {err[-3000:]}")
+    log(f"== phase 16a-c ({MESH_RANKS} ranks, one process group): "
+        f"{time.perf_counter() - t0:.1f} s")
+    for label, fn in (("16d (launch.train on a mesh)", mesh_train_leg),
+                      ("16e (demo-lm on a mesh)", mesh_demo_leg)):
+        t0 = time.perf_counter()
+        fn(device, workdir)
+        log(f"== phase {label}: {time.perf_counter() - t0:.1f} s")
+
+
 def run(device, scale: float = SCALE, reps: int = 5) -> list:
-    """Phases 2-15 on ``device``; returns the kernels records."""
+    """Phases 2-16 on ``device``; returns the kernels records."""
     from repro_torch.core import registry
     from repro_torch.models.gnn import norm_csr
     from repro_torch.sparse import reddit_like
@@ -3631,6 +4286,8 @@ def run(device, scale: float = SCALE, reps: int = 5) -> list:
         phase("phase 14 (LLM serving)", lm_serving_phase, device)
         _empty_cache(device)
         phase("phase 15 (LLM training)", lm_training_phase, device, work)
+        _empty_cache(device)
+        phase("phase 16 (multi-device paths, 4 ranks)", mesh_phase, device, work)
     log(f"main-path launches (sum of the counted runs): {json.dumps(counts)}")
     missing = [name for name in records if counts.get(name, 0) == 0]
     if missing:
@@ -3643,6 +4300,11 @@ def run(device, scale: float = SCALE, reps: int = 5) -> list:
 def main() -> int:
     import torch
 
+    if len(sys.argv) == 3 and sys.argv[1] == "--mesh-legs":  # a rank of phase 16a-c
+        sys.path.insert(0, str(SRC))
+        from torch.distributed.elastic.multiprocessing.errors import record
+
+        return record(mesh_rank_main)(Path(sys.argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
               file=sys.stderr)

@@ -42,6 +42,14 @@ sliding-window + sink CSR attention (``--long-ctx``):
 
     PYTHONPATH=src python -m repro_torch.launch.serve demo-lm \\
         --arch qwen3_14b --reduced --batch 4 --prompt-len 64 --gen 32
+
+Under ``python -m torch.distributed.run --nproc-per-node N -m
+repro_torch.launch.serve demo-lm ...`` each rank builds `make_host_mesh`
+and draws the same weights and prompts; the batch rows are split by
+`batch_axes_for` (MoE layers expert parallel). With ``--long-ctx`` and
+``REPRO_LONG_ATTN=sharded`` every rank prefills every row, keeps its
+slice of each attention cache's sequence and decodes through
+`csr_window_attention_sharded`. Rank 0 prints every row's tokens.
 """
 from __future__ import annotations
 
@@ -423,17 +431,24 @@ def demo_lm_main(args: argparse.Namespace) -> int:
     generations differ)."""
     from repro_torch.configs.base import get_config, reduced as reduce_cfg
     from repro_torch.core.features import resolve_device
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import batch_axes_for, localize, storage_specs
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import api
     from repro_torch.train.step import make_decode_step, make_prefill_step
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
-    device = resolve_device(args.device)
+    mesh = None
+    if collectives.launched():
+        mesh = make_host_mesh(args.device)
+        device = collectives.rank_device(args.device)
+    else:
+        device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = api.init_model(cfg, gen, torch.float32)
     max_len = args.prompt_len + args.gen
-    cache = api.init_cache(cfg, args.batch, max_len, torch.float32, device=device)
 
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), generator=gen,
                             device=device)
@@ -444,9 +459,19 @@ def demo_lm_main(args: argparse.Namespace) -> int:
     if cfg.family == "audio":
         batch["frames"] = torch.randn((args.batch, cfg.enc_dec.enc_seq, cfg.d_model),
                                       generator=gen, device=device)
+    # every row on every rank where the cache's sequence is split instead
+    seq_split = (mesh is not None and args.long_ctx and cfg.family != "audio"
+                 and os.environ.get("REPRO_LONG_ATTN") == "sharded")
+    ba = batch_axes_for(args.batch, mesh) if mesh is not None and not seq_split else None
+    if mesh is not None:
+        localize(model, storage_specs(model, cfg, mesh), mesh)
+        rows = collectives.rows(args.batch, mesh, ba)
+        batch = {k: v[rows] for k, v in batch.items()}
+    cache = api.init_cache(cfg, batch["tokens"].shape[0], max_len, torch.float32,
+                           device=device)
 
-    prefill = make_prefill_step(cfg, device=device)
-    decode = make_decode_step(cfg, long_ctx=args.long_ctx, device=device)
+    prefill = make_prefill_step(cfg, device=device, mesh=mesh)
+    decode = make_decode_step(cfg, long_ctx=args.long_ctx, device=device, mesh=mesh)
 
     def sync():
         if device.type == "cuda":
@@ -454,6 +479,8 @@ def demo_lm_main(args: argparse.Namespace) -> int:
 
     t0 = time.time()
     logits, cache = prefill(model, batch, cache)
+    if seq_split:
+        cache = _keep_seq_slice(cache, mesh)
     sync()
     t_prefill = time.time() - t0
 
@@ -467,13 +494,33 @@ def demo_lm_main(args: argparse.Namespace) -> int:
     sync()
     t_decode = time.time() - t0
 
-    gen_tokens = torch.cat(out, dim=1).cpu().numpy()
-    print(f"[serve] arch={cfg.name} batch={args.batch}")
-    print(f"[serve] prefill {args.prompt_len} toks: {t_prefill*1e3:.1f} ms")
-    print(f"[serve] decode {args.gen-1} steps: {t_decode*1e3:.1f} ms "
-          f"({t_decode/max(args.gen-1, 1)*1e3:.2f} ms/tok)")
-    print(f"[serve] sample generations: {gen_tokens[:, :8].tolist()}")
+    gen_tokens = torch.cat(out, dim=1)
+    if mesh is not None:
+        gen_tokens = collectives.all_gather(gen_tokens, mesh, ba, dim=0)
+    if collectives.rank() == 0:
+        gen_tokens = gen_tokens.cpu().numpy()
+        print(f"[serve] arch={cfg.name} batch={args.batch}")
+        print(f"[serve] prefill {args.prompt_len} toks: {t_prefill*1e3:.1f} ms")
+        print(f"[serve] decode {args.gen-1} steps: {t_decode*1e3:.1f} ms "
+              f"({t_decode/max(args.gen-1, 1)*1e3:.2f} ms/tok)")
+        print(f"[serve] sample generations: {gen_tokens[:, :8].tolist()}")
     return 0
+
+
+def _keep_seq_slice(cache: Dict, mesh) -> Dict:
+    """Each attention layer's k/v cut to this rank's slice of the sequence
+    over ('data', 'model'), the layout `csr_window_attention_sharded`
+    reads; other caches stay whole."""
+    from repro_torch.distributed.sharding import local_block
+
+    spec = (None, ("data", "model"), None, None)
+    layers = []
+    for c in cache["layers"]:
+        if "k" in c and "v" in c:
+            c = dict(c, k=local_block(c["k"], spec, mesh).clone(),
+                     v=local_block(c["v"], spec, mesh).clone())
+        layers.append(c)
+    return {"layers": layers}
 
 
 # ------------------------------------------------------------------ CLI
@@ -547,4 +594,12 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    # under torch.distributed.run, a failing rank's traceback goes into
+    # the launcher's failure summary
+    from torch.distributed.elastic.multiprocessing.errors import record
+
+    rc = record(main)()
+    from repro_torch.distributed import collectives
+
+    collectives.finish()
+    sys.exit(rc)

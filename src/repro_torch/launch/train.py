@@ -14,6 +14,15 @@ a resumed run sees the batches an uninterrupted one would.
   * a simulated crash (--crash-at N, exit code 17) to show recovery
   * batches made by a double-buffered host prefetcher, so a slow host
     step overlaps the device's work
+
+Under ``python -m torch.distributed.run --nproc-per-node N -m
+repro_torch.launch.train ...`` each rank joins the process group (nccl
+where every local rank has a card of its own, else gloo), builds
+`make_host_mesh` (1, N, 1) and trains data-parallel, MoE experts split
+over 'data' (expert parallelism): every rank draws the same weights and
+global batch, keeps its slices and rows, and rank 0 alone logs and
+writes checkpoints. A checkpoint from any world size resumes on any
+other. Without torch.distributed.run it trains on one device.
 """
 from __future__ import annotations
 
@@ -28,8 +37,10 @@ from repro_torch.configs.base import get_config, reduced as reduce_cfg
 from repro_torch.core.features import resolve_device
 from repro_torch.data.pipeline import Prefetcher
 from repro_torch.data.synthetic import PipelineState, token_batch
+from repro_torch.distributed import collectives
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.train.step import init_train_state, make_train_step
+from repro_torch.train.step import init_train_state, make_train_step, shard_state
 
 CRASH_EXIT = 17  # the simulated crash's exit code
 
@@ -50,22 +61,35 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None, help="torch device (default: the card)")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
+    mesh = None
+    if collectives.launched():
+        mesh = make_host_mesh(args.device)
+        dev = collectives.rank_device(args.device)
+    else:
+        dev = resolve_device(args.device)
+    lead = collectives.rank() == 0
+
+    def log(msg):
+        if lead:
+            print(msg, flush=True)
+
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
                           warmup_steps=min(20, args.steps // 5))
-    step_fn = make_train_step(cfg, opt_cfg, device=dev)
+    step_fn = make_train_step(cfg, opt_cfg, device=dev, mesh=mesh)
 
     state = init_train_state(cfg, args.seed, torch.float32, device=dev)
+    if mesh is not None:
+        state = shard_state(state, cfg, mesh)
     pipe = PipelineState(seed=args.seed, step=0)
 
     # ---- auto-resume ------------------------------------------------
     if args.ckpt_dir and ckpt_mod.latest_step(args.ckpt_dir) is not None:
-        state, extra = ckpt_mod.restore(state, args.ckpt_dir, device=dev)
+        state, extra = ckpt_mod.restore(state, args.ckpt_dir, device=dev, mesh=mesh)
         pipe = PipelineState(**extra["pipeline"])
-        print(f"[train] resumed from step {int(state.step)}", flush=True)
+        log(f"[train] resumed from step {int(state.step)}")
 
     start = int(state.step)
     t0 = time.time()
@@ -77,31 +101,38 @@ def main(argv=None) -> int:
     try:
         for step in range(start, args.steps):
             if step == args.crash_at:
-                print(f"[train] simulating crash at step {step}", flush=True)
+                log(f"[train] simulating crash at step {step}")
                 return CRASH_EXIT
             pipe.step, batch = next(prefetch)
             pipe.step += 1
             state, metrics = step_fn(state, batch)
             if step % args.log_every == 0 or step == args.steps - 1:
-                print(
+                log(
                     f"[train] step={step} loss={float(metrics['loss']):.4f} "
                     f"gnorm={float(metrics['grad_norm']):.3f} "
                     f"lr={float(metrics['lr']):.2e} "
-                    f"({(time.time() - t0):.1f}s)",
-                    flush=True,
+                    f"({(time.time() - t0):.1f}s)"
                 )
             if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
                 ckpt_mod.save(state, args.ckpt_dir, step + 1,
-                              extra={"pipeline": {"seed": pipe.seed, "step": pipe.step}})
-                ckpt_mod.prune_old(args.ckpt_dir, keep=3)
+                              extra={"pipeline": {"seed": pipe.seed, "step": pipe.step}},
+                              mesh=mesh)
+                if lead:
+                    ckpt_mod.prune_old(args.ckpt_dir, keep=3)
     finally:
         prefetch.close()
     if args.ckpt_dir:
         ckpt_mod.save(state, args.ckpt_dir, args.steps,
-                      extra={"pipeline": {"seed": pipe.seed, "step": pipe.step}})
-    print(f"[train] done: {args.steps} steps in {time.time() - t0:.1f}s", flush=True)
+                      extra={"pipeline": {"seed": pipe.seed, "step": pipe.step}}, mesh=mesh)
+    log(f"[train] done: {args.steps} steps in {time.time() - t0:.1f}s")
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    # under torch.distributed.run, a failing rank's traceback goes into
+    # the launcher's failure summary
+    from torch.distributed.elastic.multiprocessing.errors import record
+
+    rc = record(main)()
+    collectives.finish()
+    sys.exit(rc)

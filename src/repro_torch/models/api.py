@@ -6,6 +6,10 @@ the CPU (``device="cpu"``): the model must already live there, and
 numpy inputs (tokens, patch embeddings, frames) are moved there. There
 is no fallback from the card to the CPU. `prefill` and `decode_step`
 write the cache in place and return it with its positions advanced.
+``mesh`` (a process mesh, `launch.mesh`) is threaded as JAX threads
+it: the inputs are this rank's own, MoE layers take the expert-parallel
+path, and with ``REPRO_LONG_ATTN=sharded`` a long-context decode step
+takes the sharded CSR window attention. Whisper ignores it, as in JAX.
 
 The carry-over functions convert weights, caches and train states
 between the port (one flat list of layers, tensors keyed by parameter
@@ -54,12 +58,12 @@ def init_model(cfg: ArchConfig, key: Key = 0, dtype=torch.float32, device=None):
     return transformer.init_lm(cfg, key, dtype, device)
 
 
-def forward(model, batch: Dict, cfg: ArchConfig, device=None) -> torch.Tensor:
+def forward(model, batch: Dict, cfg: ArchConfig, device=None, mesh=None) -> torch.Tensor:
     """Teacher-forcing logits (B, S, V), fp32."""
     batch = _inputs(batch, _on(model, device))
     if _is_audio(cfg):
         return encdec.encdec_forward(model, batch, cfg)
-    return transformer.lm_forward(model, batch, cfg)
+    return transformer.lm_forward(model, batch, cfg, mesh)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device=None) -> Dict:
@@ -69,25 +73,25 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device=None) ->
     return transformer.init_lm_cache(cfg, batch, max_len, dtype, dev)
 
 
-def prefill(model, batch: Dict, cfg: ArchConfig, cache: Dict, device=None):
+def prefill(model, batch: Dict, cfg: ArchConfig, cache: Dict, device=None, mesh=None):
     """The prompt through the model, filling ``cache``: (last position's
     logits (B, 1, V), cache)."""
     batch = _inputs(batch, _on(model, device))
     with torch.no_grad():
         if _is_audio(cfg):
             return encdec.encdec_prefill(model, batch, cfg, cache)
-        return transformer.lm_prefill(model, batch, cfg, cache)
+        return transformer.lm_prefill(model, batch, cfg, cache, mesh)
 
 
 def decode_step(model, tokens, cfg: ArchConfig, cache: Dict, long_ctx: bool = False,
-                device=None):
+                device=None, mesh=None):
     """One token per row (B, 1): (logits (B, 1, V), cache). ``long_ctx``
     routes GQA layers through the CSR window + sink attention."""
     tokens = _inputs(tokens, _on(model, device))
     with torch.no_grad():
         if _is_audio(cfg):
             return encdec.encdec_decode_step(model, tokens, cfg, cache)
-        return transformer.lm_decode_step(model, tokens, cfg, cache, long_ctx)
+        return transformer.lm_decode_step(model, tokens, cfg, cache, long_ctx, mesh)
 
 
 # ------------------------------------------------------------ carry-over

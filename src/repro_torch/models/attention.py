@@ -2,11 +2,12 @@
 MLA (DeepSeek-V2), and the sliding-window + sink "CSR attention" of
 long-context decode.
 
-Port of repro/models/attention.py, single device (its
-``csr_window_attention_sharded`` needs a mesh and is not ported). Every
-product is a plain torch op, as JAX evaluates it with plain XLA ops: no
-Pallas kernel is on this path. Logits and softmax are fp32; the
-additive mask is NEG_INF = -1e30.
+Port of repro/models/attention.py, with
+``csr_window_attention_sharded``, the long-context decode over a cache
+whose sequence is split over the ranks of a mesh. Every product is a
+plain torch op, as JAX evaluates it with plain XLA ops: no Pallas
+kernel is on this path. Logits and softmax are fp32; the additive mask
+is NEG_INF = -1e30.
 
 KV cache layout: {"k": (B, L, Hkv, Dh), "v": (B, L, Hkv, Dh), "pos": int}.
 A step writes the cache's tensors in place (JAX's `dynamic_update_slice`,
@@ -21,6 +22,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import mesh_shape
 from repro_torch.models.modules import (
     NEG_INF,
     Params,
@@ -211,6 +214,58 @@ def csr_window_attention(
     mask = additive_mask(ok)[None, None, None, :]
     out = _sdpa(q, k_band, v_band, mask, 1.0 / dh ** 0.5)
     return linear(out, params.wo), {"k": k_all, "v": v_all, "pos": pos + 1}
+
+
+def csr_window_attention_sharded(
+    params,
+    x: torch.Tensor,
+    cfg: ArchConfig,
+    positions: torch.Tensor,
+    cache: Dict,
+    mesh,
+) -> Tuple[torch.Tensor, Dict]:
+    """Distribution-aware CSR window + sink attention (JAX's
+    ``REPRO_LONG_ATTN=sharded``): the cache's sequence is split over the
+    mesh's ('data', 'model') ranks, the first axis major, and this rank's
+    ``cache`` holds its slice. The new token's k/v is written only by the
+    rank whose slice holds ``pos``. Each rank takes the logits of its own
+    positions masked to the band (``kpos <= pos`` and in the window or
+    among the sinks: unlike the naive path, a sink beyond ``pos`` is
+    masked), then a flash-style combine: a MAX all-reduce of the row
+    maxima, a SUM all-reduce of the partial outputs and sums. No cache
+    moves; the traffic is O(B·H·Dh) whatever the context length. ``x``
+    and the output are replicated over the ranks."""
+    b, s, _ = x.shape
+    if s != 1:
+        raise ValueError("csr_window_attention_sharded is a decode step")
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    g = h // hkv
+    w, sinks = cfg.long_window, cfg.long_sinks
+    scale = 1.0 / dh ** 0.5
+    q, k_new, v_new = _qkv(params, x, cfg, positions)
+    pos = cache["pos"]
+    seq_axes = tuple(a for a in ("data", "model") if a in mesh_shape(mesh))
+    k_loc, v_loc = cache["k"], cache["v"]
+    l_loc = k_loc.shape[1]
+    offset = collectives.axis_index(mesh, seq_axes) * l_loc
+    if offset <= pos < offset + l_loc:  # the new token lands in this slice
+        k_loc[:, pos - offset] = k_new[:, 0].to(k_loc.dtype)
+        v_loc[:, pos - offset] = v_new[:, 0].to(v_loc.dtype)
+    kpos = offset + torch.arange(l_loc, device=x.device)
+    valid = (kpos <= pos) & ((kpos > pos - w) | (kpos < sinks))
+    qg = q.reshape(b, 1, hkv, g, dh).float()
+    logits = torch.einsum("bshgd,blhd->bhgsl", qg, k_loc.float()) * scale
+    logits = logits.masked_fill(~valid, float("-inf"))
+    m = collectives.pmax(torch.amax(logits, dim=-1, keepdim=True), mesh, seq_axes)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(logits - m_safe) * valid
+    l_sum = torch.sum(p, dim=-1, keepdim=True)
+    o = torch.einsum("bhgsl,blhd->bshgd", p, v_loc.float())
+    stats = torch.cat([o.reshape(b, 1, h, dh), l_sum.reshape(b, 1, h, 1)], dim=-1)
+    stats = collectives.psum(stats, mesh, seq_axes)
+    out = stats[..., :dh] / torch.clamp_min(stats[..., dh:], 1e-30)
+    out = out.reshape(b, 1, h * dh).to(x.dtype)
+    return linear(out, params.wo), {"k": k_loc, "v": v_loc, "pos": pos + 1}
 
 
 # ----------------------------------------------------------------- MLA

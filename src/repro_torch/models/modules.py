@@ -25,15 +25,29 @@ Key = Union[int, torch.Generator]
 NEG_INF = -1e30  # the additive mask value of the JAX package (not -inf)
 
 
+class _Shapes:
+    """A generator stand-in on the meta device: initialisers given it make
+    tensors of the right shapes and dtypes, and allocate and draw
+    nothing (full-width shapes for the sharding rules)."""
+
+    device = torch.device("meta")
+
+
 def make_generator(key: Key = 0, device=None) -> torch.Generator:
     """A generator on ``device`` (the card unless the caller asks for the
-    CPU) seeded with ``key``; a generator passes through unchanged."""
+    CPU, or the meta device, where nothing is drawn) seeded with ``key``;
+    a generator passes through unchanged."""
     if isinstance(key, torch.Generator):
         return key
-    return torch.Generator(device=resolve_device(device)).manual_seed(int(key))
+    dev = resolve_device(device)
+    if dev.type == "meta":
+        return _Shapes()
+    return torch.Generator(device=dev).manual_seed(int(key))
 
 
 def normal(gen: torch.Generator, shape, std: float = 1.0, dtype=torch.float32) -> torch.Tensor:
+    if gen.device.type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     return (torch.randn(tuple(shape), generator=gen, device=gen.device) * std).to(dtype)
 
 

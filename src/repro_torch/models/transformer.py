@@ -1,7 +1,7 @@
 """Decoder-only LM for every decoder family (dense, vlm, moe, ssm, hybrid;
 MLA layers).
 
-Port of repro/models/transformer.py for one device. JAX stacks the
+Port of repro/models/transformer.py. JAX stacks the
 uniform tail of the layer stack and scans it (with remat); here every
 layer is a `Block` in an `nn.ModuleList`, looped in Python, in
 `layer_kinds` order (the head layers, then the tail's units unrolled).
@@ -11,6 +11,10 @@ as JAX's `jax.checkpoint(nothing_saveable)` scan body does: this changes
 memory, not values. The head layers are not checkpointed.
 Caches follow the same order: ``{"layers": [one cache dict per layer]}``,
 each with its own ``pos``, as each of JAX's per-layer caches has.
+On a mesh (``mesh=``, a process mesh of `launch.mesh`) each rank runs
+its own rows: MoE layers take the expert-parallel path, and with
+``REPRO_LONG_ATTN=sharded`` long-context decode takes the sharded CSR
+window attention over this rank's slice of the cache.
 
 Entry points:
   init_lm(cfg, key, dtype, device)             -> LM
@@ -21,6 +25,7 @@ Entry points:
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -30,6 +35,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import mesh_shape, sanitize, to_placements
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
@@ -91,6 +97,7 @@ def block_apply(
     cache: Optional[Dict],
     window: Optional[int],
     long_ctx: bool,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     kind = p.kind
     h = rmsnorm(x, p.ln1, cfg.norm_eps)
@@ -114,14 +121,18 @@ def block_apply(
     elif cfg.mla:
         y, new_cache = attn.mla_attention(p.attn, h, cfg, positions, cache)
     elif long_ctx and cache is not None:
-        y, new_cache = attn.csr_window_attention(p.attn, h, cfg, positions, cache)
+        if os.environ.get("REPRO_LONG_ATTN") == "sharded" and mesh is not None:
+            y, new_cache = attn.csr_window_attention_sharded(p.attn, h, cfg, positions, cache,
+                                                             mesh)
+        else:
+            y, new_cache = attn.csr_window_attention(p.attn, h, cfg, positions, cache)
     else:
         y, new_cache = attn.gqa_attention(p.attn, h, cfg, positions, cache, window=window)
     x = x + y
     ffn = getattr(p, "ffn", None)
     if ffn is not None:
         h2 = rmsnorm(x, p.ln2, cfg.norm_eps)
-        f = moe_mod.moe_ffn(ffn, h2, cfg) if kind == "moe" else swiglu(ffn, h2)
+        f = moe_mod.moe_ffn(ffn, h2, cfg, mesh) if kind == "moe" else swiglu(ffn, h2)
         x = x + f
     return x, new_cache
 
@@ -196,26 +207,49 @@ def remat(fn, *args):
     return fn(*args)
 
 
+def activation_constraint(x: torch.Tensor, mesh) -> torch.Tensor:
+    """JAX's layer-boundary layout hint: batch over ('pod', 'data'), the
+    sequence over 'model' (Megatron-style sequence parallelism;
+    ``REPRO_ACT_SP=0`` drops that shard), sanitized. A layout, never a
+    value: a plain tensor (each rank's own rows, as the step factories
+    keep activations) comes back unchanged, and a DTensor is
+    redistributed to the spec's placements."""
+    if mesh is None or x.ndim != 3:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    batch_axes = tuple(a for a in ("pod", "data") if a in mesh_shape(mesh))
+    seq_axis = None if os.environ.get("REPRO_ACT_SP") == "0" else "model"
+    spec = sanitize((batch_axes or None, seq_axis, None), tuple(x.shape), mesh)
+    return x.redistribute(x.device_mesh, to_placements(spec, mesh))
+
+
 def _run_blocks(model: LM, x, cfg: ArchConfig, positions, caches: Optional[Dict],
-                long_ctx: bool) -> Tuple[torch.Tensor, Optional[Dict]]:
+                long_ctx: bool, mesh=None) -> Tuple[torch.Tensor, Optional[Dict]]:
     window = cfg.hybrid.local_window if cfg.hybrid else None
     if caches is None:  # training / teacher forcing: remat each tail unit
         head, unit, _ = _stack_plan(cfg)
         blocks = list(model.blocks)
         for blk in blocks[:len(head)]:
-            x, _ = block_apply(blk, x, cfg, positions, None, window, False)
+            x, _ = block_apply(blk, x, cfg, positions, None, window, False, mesh)
 
         def unit_apply(xu, unit_blocks):
+            xu = activation_constraint(xu, mesh)
             for blk in unit_blocks:
-                xu, _ = block_apply(blk, xu, cfg, positions, None, window, False)
+                xu, _ = block_apply(blk, xu, cfg, positions, None, window, False, mesh)
             return xu
 
         for i in range(len(head), len(blocks), len(unit)):
             x = remat(unit_apply, x, blocks[i:i + len(unit)])
         return x, None
+    head, unit, _ = _stack_plan(cfg)
     new_layers = []
-    for blk, c in zip(model.blocks, caches["layers"]):
-        x, c2 = block_apply(blk, x, cfg, positions, c, window, long_ctx)
+    for i, (blk, c) in enumerate(zip(model.blocks, caches["layers"])):
+        if i >= len(head) and (i - len(head)) % len(unit) == 0:
+            x = activation_constraint(x, mesh)
+        x, c2 = block_apply(blk, x, cfg, positions, c, window, long_ctx, mesh)
         new_layers.append(c2)
     return x, {"layers": new_layers}
 
@@ -226,12 +260,12 @@ def _logits(model: LM, x, cfg: ArchConfig) -> torch.Tensor:
     return (h @ w.to(h.dtype)).float()
 
 
-def lm_forward(model: LM, batch: Dict, cfg: ArchConfig) -> torch.Tensor:
+def lm_forward(model: LM, batch: Dict, cfg: ArchConfig, mesh=None) -> torch.Tensor:
     """Teacher-forcing forward. batch: tokens (B, S) [+ patch_embeds]."""
     x = _embed_inputs(model, batch, cfg)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    x, _ = _run_blocks(model, x, cfg, positions, None, long_ctx=False)
+    x, _ = _run_blocks(model, x, cfg, positions, None, long_ctx=False, mesh=mesh)
     return _logits(model, x, cfg)
 
 
@@ -251,25 +285,25 @@ def init_lm_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat1
                        for k in layer_kinds(cfg)]}
 
 
-def lm_prefill(model: LM, batch: Dict, cfg: ArchConfig, cache: Dict
+def lm_prefill(model: LM, batch: Dict, cfg: ArchConfig, cache: Dict, mesh=None
                ) -> Tuple[torch.Tensor, Dict]:
     """Process a full prompt, filling the caches; returns the last
     position's logits (B, 1, V)."""
     x = _embed_inputs(model, batch, cfg)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    x, new_cache = _run_blocks(model, x, cfg, positions, cache, long_ctx=False)
+    x, new_cache = _run_blocks(model, x, cfg, positions, cache, long_ctx=False, mesh=mesh)
     return _logits(model, x[:, -1:], cfg), new_cache
 
 
 def lm_decode_step(model: LM, tokens: torch.Tensor, cfg: ArchConfig, cache: Dict,
-                   long_ctx: bool = False) -> Tuple[torch.Tensor, Dict]:
+                   long_ctx: bool = False, mesh=None) -> Tuple[torch.Tensor, Dict]:
     """One decode step. tokens: (B, 1). long_ctx=True routes GQA layers
     through the CSR window + sink path (the paper's pipeline)."""
     x = F.embedding(tokens, model.embed)
     b = x.shape[0]
     positions = torch.full((b, 1), _first_pos(cache), dtype=torch.long, device=x.device)
-    x, new_cache = _run_blocks(model, x, cfg, positions, cache, long_ctx=long_ctx)
+    x, new_cache = _run_blocks(model, x, cfg, positions, cache, long_ctx=long_ctx, mesh=mesh)
     return _logits(model, x, cfg), new_cache
 
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Mapping, NamedTuple, Tuple, Union
+from typing import Callable, Dict, Mapping, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -66,12 +66,16 @@ def init_opt_state(params: Named) -> OptState:
                     v={n: z.clone() for n, z in zeros.items()})
 
 
-def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float
+def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float,
+                        reduce_sq: Optional[Callable] = None
                         ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """Every gradient scaled by min(1, max_norm / global norm), in place;
-    returns (grads, the global fp32 norm before clipping)."""
-    sq = [torch.sum(torch.square(g.float())) for g in grads.values()]
-    gn = torch.sqrt(torch.stack(sq).sum())
+    returns (grads, the global fp32 norm before clipping). ``reduce_sq``
+    maps {name: the sum of the gradient's squares} to the global sum
+    where the gradients are split over ranks (default: their sum)."""
+    sq = {n: torch.sum(torch.square(g.float())) for n, g in grads.items()}
+    total = torch.stack(list(sq.values())).sum() if reduce_sq is None else reduce_sq(sq)
+    gn = torch.sqrt(total)
     scale = torch.clamp(max_norm / torch.clamp_min(gn, 1e-9), max=1.0)
     for g in grads.values():
         g.mul_(scale.to(g.dtype))
@@ -92,12 +96,14 @@ def _decay_mask(name: str) -> bool:
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, grads: Mapping[str, torch.Tensor], params: Named,
-                 state: OptState) -> Tuple[Dict[str, torch.Tensor], OptState, Dict]:
-    """One AdamW update from ``grads`` (by parameter name; clipped in place).
-    The parameters and ``state``'s moments are updated in place; returns
-    (params, the new OptState, {grad_norm, lr})."""
+                 state: OptState, reduce_sq: Optional[Callable] = None
+                 ) -> Tuple[Dict[str, torch.Tensor], OptState, Dict]:
+    """One AdamW update from ``grads`` (by parameter name; clipped in place,
+    ``reduce_sq`` as in `clip_by_global_norm`). The parameters and
+    ``state``'s moments are updated in place; returns (params, the new
+    OptState, {grad_norm, lr})."""
     params = named(params)
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, reduce_sq)
     count = state.count + 1
     lr = schedule(cfg, count)
     b1c = 1 - cfg.b1 ** count.float()
