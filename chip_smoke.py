@@ -221,8 +221,8 @@ order; any failure raises and the script exits non-zero:
       metrics_<pid>.{prom,json}; `python -m repro_torch.obs_cli
       export-trace` merges them into one Chrome trace holding decide,
       probe and run spans; `obs_cli summary` prints the serve counters;
-      `obs_cli explain` prints an attention bucket's narrative; and
-      serve_events.jsonl holds one request record per request served, at
+      `obs_cli explain` prints an attention bucket's narrative (the
+      three as processes at once); and serve_events.jsonl holds one request record per request served, at
       least one upgrade and one summary.
 14. LLM serving (models/api.py, train/step.py, demo-lm), fp32, TF32 off;
    no hand-written kernel is on this path (the JAX LLM stack reaches no
@@ -316,19 +316,37 @@ order; any failure raises and the script exits non-zero:
    c. compressed_psum over 'pod' on (4, 1, 1), one 5120 x 17408 fp32
       tensor (Qwen3-14B's w_up) per rank: err1 after one reduction, the
       drift after 20 with error feedback, which must be below err1 / 2.
-   d. `python -m torch.distributed.run --nproc-per-node 4 -m
-      repro_torch.launch.train --arch qwen3_moe_235b_a22b --reduced
-      --steps 8 --ckpt-every 2 --crash-at 5`, resumed with 2 ranks;
-      the final loss within 1e-4 (as printed) of a one-rank run's
-      (REPRO_MOE_CF=8 in all three), its moments within 1e-4 of max
+   d. `launch.train --arch qwen3_moe_235b_a22b --reduced --steps 8
+      --ckpt-every 2 --crash-at 5` on one rank (launch.train.main
+      in-process), resumed from its step-4 checkpoint by `python -m
+      torch.distributed.run --nproc-per-node 4 -m
+      repro_torch.launch.train ...` (elastic restore onto the mesh,
+      the later checkpoints saved over it); the final loss within 1e-4
+      (as printed) of a one-rank uninterrupted run's (REPRO_MOE_CF=8 in
+      all three), its moments within 1e-4 of max
       |ref| and its weights within 2 lr per step (AdamW's first steps
       move a weight whose gradient is at rounding level by ~lr of either
       sign).
       **Cut:** reduced widths (four replicated full-width states would
-      not fit on one card).
+      not fit on one card); the crash runs on one rank in-process, not
+      on 4 ranks as a second launcher process.
    e. `demo-lm --arch qwen3_14b --reduced --long-ctx` with
       REPRO_LONG_ATTN=sharded on 4 ranks: rank 0's greedy tokens equal a
       one-rank run's.
+17. The dry run (launch/{specs,op_costs,roofline,dryrun_lib,dryrun,
+   report}.py): a device-free cost pass, so it needs no card and no
+   kernel:
+   a. launch.op_costs over exactly 14a's prefill (8 x 1,024 into a
+      1,056-position cache) and 15a's train step (8 x 256, remat) at
+      Qwen3-14B's widths, 4 layers, fp32, on the meta device: the
+      counted FLOPs and bytes and the FLOP bound at 67 TFLOP/s, beside
+      14a's and 15a's hand counts and the warm times this run measured.
+      The counted FLOPs must be within 5 % of the hand counts.
+   b. `python -m repro_torch.launch.dryrun --arch qwen3_14b --mesh
+      single` (4 cells on a fake 256-rank world) and `--arch
+      qwen3_moe_235b_a22b --shape train_4k --mesh multi` (a fake
+      512-rank world) as two processes at once, each with a timeout:
+      both exit 0 with every cell ok; launch.report's rows are printed.
 
 The main path is every forward of phases 3, 4 and 6, every training
 step of phases 8, 9 and 11, the ops chain of phase 10, the runner
@@ -348,6 +366,7 @@ JSON.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -2922,20 +2941,23 @@ def serve_artifacts_phase(workdir: Path, attn_key: str, cache_path: str,
     and serve_events.jsonl."""
     obs_dir, merged = workdir / "obs", workdir / "merged_trace.json"
     cli = [sys.executable, "-m", "repro_torch.obs_cli"]
-    rc, out, err = _run_cmd(cli + ["export-trace", "--obs", str(obs_dir), "--out", str(merged)],
-                            120)
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:  # three processes at once
+        runs = [pool.submit(_run_cmd, cli + args, 120) for args in (
+            ["export-trace", "--obs", str(obs_dir), "--out", str(merged)],
+            ["summary", "--obs", str(obs_dir)],
+            ["explain", attn_key, "--cache", cache_path, "--telemetry", str(workdir)])]
+        (rc, out, err), summary, explain = [r.result() for r in runs]
     trace = json.loads(merged.read_text()) if rc == 0 else {}
     names = {e["name"] for e in trace.get("traceEvents", [])}
     log(f"13c export-trace (rc {rc}): {out.strip()}; span names {sorted(names)}")
     if rc != 0 or not {"decide", "probe", "run"} <= names:
         raise AssertionError(f"13c export-trace: rc {rc}, names {sorted(names)}\n{err[-2000:]}")
-    rc, out, err = _run_cmd(cli + ["summary", "--obs", str(obs_dir)], 120)
+    rc, out, err = summary
     log("13c obs_cli summary:\n" + "\n".join(
         ln for ln in out.splitlines() if "serve" in ln or ln.startswith("==") or "stall" in ln))
     if rc != 0 or "autosage_serve_requests_total" not in out:
         raise AssertionError(f"13c summary: rc {rc}\n{out[-2000:]}\n{err[-2000:]}")
-    rc, out, err = _run_cmd(cli + ["explain", attn_key, "--cache", cache_path,
-                                   "--telemetry", str(workdir)], 120)
+    rc, out, err = explain
     log(f"13c obs_cli explain {attn_key}:\n{out.rstrip()}")
     if rc != 0 or "pinned choice:" not in out or "live statistics" not in out:
         raise AssertionError(f"13c explain: rc {rc}\n{err[-2000:]}")
@@ -3000,6 +3022,9 @@ OTHER_PROMPT, OTHER_STEPS, OTHER_LONG_STEPS = 32, 4, 2
 DEMO_LM_ARGS = ("demo-lm", "--arch", LM_ARCH, "--reduced", "--long-ctx")
 
 
+MEASURED = {}  # 14a's and 15a's warm ms, for phase 17a
+
+
 def _lm_config(n_layers):
     import dataclasses
 
@@ -3019,6 +3044,17 @@ def _layer_params(cfg) -> int:
     """Weights of one attn_mlp layer: q, k, v, o, the SwiGLU and the norms."""
     d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     return d * h * dh * 2 + d * hkv * dh * 2 + 3 * d * cfg.d_ff + 2 * d + 2 * dh
+
+
+def _prefill_flops(cfg) -> float:
+    """FLOPs of 14a's prefill: the layers' matrices per token, the
+    attention products over the causal half of each score matrix, and
+    the last position's unembedding."""
+    tokens = LM_BATCH * LM_PROMPT
+    attn_flops = LM_LAYERS * 4 * LM_BATCH * cfg.n_heads * cfg.resolved_head_dim * (
+        LM_PROMPT * (LM_PROMPT + 1) // 2)
+    return 2 * tokens * LM_LAYERS * _layer_params(cfg) + attn_flops + \
+        2 * LM_BATCH * cfg.d_model * cfg.vocab
 
 
 def _event_ms(fn, device, reps) -> float:
@@ -3168,15 +3204,13 @@ def lm_full_width_phase(device) -> None:
     agree = float((full[:, LM_PROMPT - 1:].argmax(-1) == torch.cat(out, 1)).float().mean())
     del full
     # bounds: causal prefill FLOPs over fp32 peak; a decode step's bytes
-    tokens = LM_BATCH * LM_PROMPT
     lin = LM_LAYERS * _layer_params(cfg)
-    attn_flops = LM_LAYERS * 4 * LM_BATCH * cfg.n_heads * cfg.resolved_head_dim * (
-        LM_PROMPT * (LM_PROMPT + 1) // 2)
-    prefill_flops = 2 * tokens * lin + attn_flops + 2 * LM_BATCH * cfg.d_model * cfg.vocab
+    prefill_flops = _prefill_flops(cfg)
     kv_row = 2 * LM_LAYERS * cfg.n_kv_heads * cfg.resolved_head_dim * 4
     mid = LM_PROMPT + LM_GEN // 2
     step_bytes = (lin + cfg.d_model * cfg.vocab) * 4 + LM_BATCH * mid * kv_row
     ms_tok = decode_s / LM_GEN * 1e3
+    MEASURED["14a prefill"] = prefill_s[1] * 1e3
     log(f"14a prefill {LM_BATCH} x {LM_PROMPT} tokens: cold {prefill_s[0] * 1e3:.1f} ms, "
         f"warm {prefill_s[1] * 1e3:.1f} ms; bound {prefill_flops / FP32_FLOPS * 1e3:.1f} ms "
         f"({prefill_flops / 1e12:.2f} TFLOP / 67 TFLOP/s fp32)")
@@ -3461,6 +3495,7 @@ def lm_train_full_width_phase(device) -> None:
     warm = [r[0] for r in rows[1:]]
     warm_ms = statistics.median(warm) * 1e3
     adam_warm = statistics.median(a.elapsed_time(b) for a, b in adam_ms[1:])
+    MEASURED["15a train step"] = warm_ms
     log(f"15a warm step (median of steps 1-{TRAIN_STEPS - 1}): {warm_ms:.1f} ms, "
         f"{tokens / warm_ms * 1e3:.1f} tokens/s; cold step {rows[0][0] * 1e3:.1f} ms; bound "
         f"{bound_s * 1e3:.1f} ms ({flops / 1e12:.2f} TFLOP / 67 TFLOP/s fp32 + AdamW "
@@ -4099,51 +4134,58 @@ def _cli_losses(out: str) -> dict:
             for m in re.finditer(r"\[train\] step=(\d+) loss=(\S+)", out)}
 
 
-def mesh_train_leg(device, workdir: Path) -> None:
-    """16d: launch.train on 4 ranks with a crash at step 5, resumed on 2
-    ranks, against one rank's uninterrupted run."""
-    import numpy as np
-
-    from repro_torch.checkpoint import ckpt
+def _train_in_process(device, ck: Path, *extra) -> tuple:
+    """launch.train.main on one rank in this process with REPRO_MOE_CF=8:
+    (exit code, what it printed)."""
     from repro_torch.launch import train
 
-    env = {"REPRO_MOE_CF": "8"}
-    ck, ref = workdir / "mesh_ck", workdir / "mesh_ref"
-    run = [sys.executable, "-m", "torch.distributed.run", "--standalone"]
-    cmd = ["-m", "repro_torch.launch.train", *MESH_TRAIN_ARGS, "--ckpt-dir", str(ck)]
-    t0 = time.perf_counter()
-    with _process_memory(f"16d crash run, {MESH_RANKS} ranks"):
-        rc, out, err = _run_cmd(run + [f"--nproc-per-node={MESH_RANKS}", *cmd, "--crash-at",
-                                       "5"], MESH_TIMEOUT_S, env)
-    for ln in out.splitlines():
-        log(f"16d   {ln}")
-    if rc == 0 or "[train] simulating crash at step 5" not in out or ckpt.latest_step(str(ck)) != 4:
-        raise AssertionError(f"16d crash run: rc {rc}, latest {ckpt.latest_step(str(ck))}: "
-                             f"{err[-2000:]}")
-    log(f"16d {MESH_RANKS} ranks, crash at step 5: latest committed step 4 "
-        f"({time.perf_counter() - t0:.1f} s)")
-    t0 = time.perf_counter()
-    with _process_memory("16d resume, 2 ranks"):
-        rc, out, err = _run_cmd(run + ["--nproc-per-node=2", *cmd], MESH_TIMEOUT_S, env)
-    for ln in out.splitlines():
-        log(f"16d   {ln}")
-    if rc != 0 or "[train] resumed from step 4" not in out or ckpt.latest_step(str(ck)) != 8:
-        raise AssertionError(f"16d resume on 2 ranks: rc {rc}: {err[-2000:]}")
-    log(f"16d resumed on 2 ranks from step 4 to 8 ({time.perf_counter() - t0:.1f} s)")
     old = os.environ.get("REPRO_MOE_CF")
     os.environ["REPRO_MOE_CF"] = "8"
     buf = io.StringIO()
     try:
         with contextlib.redirect_stdout(buf):
-            rc = train.main([*MESH_TRAIN_ARGS, "--ckpt-dir", str(ref), "--device", str(device)])
+            rc = train.main([*MESH_TRAIN_ARGS, "--ckpt-dir", str(ck), "--device", str(device),
+                             *extra])
     finally:
         if old is None:
             os.environ.pop("REPRO_MOE_CF")
         else:
             os.environ["REPRO_MOE_CF"] = old
+    return rc, buf.getvalue()
+
+
+def mesh_train_leg(device, workdir: Path) -> None:
+    """16d: launch.train on one rank with a crash at step 5, resumed on 4
+    ranks, against one rank's uninterrupted run."""
+    import numpy as np
+
+    from repro_torch.checkpoint import ckpt
+
+    ck, ref = workdir / "mesh_ck", workdir / "mesh_ref"
+    t0 = time.perf_counter()
+    rc, out = _train_in_process(device, ck, "--crash-at", "5")
+    for ln in out.splitlines():
+        log(f"16d   {ln}")
+    if rc == 0 or "[train] simulating crash at step 5" not in out or ckpt.latest_step(str(ck)) != 4:
+        raise AssertionError(f"16d crash run: rc {rc}, latest {ckpt.latest_step(str(ck))}")
+    log(f"16d one rank, crash at step 5: latest committed step 4 "
+        f"({time.perf_counter() - t0:.1f} s)")
+    run = [sys.executable, "-m", "torch.distributed.run", "--standalone"]
+    cmd = ["-m", "repro_torch.launch.train", *MESH_TRAIN_ARGS, "--ckpt-dir", str(ck)]
+    t0 = time.perf_counter()
+    with _process_memory(f"16d resume, {MESH_RANKS} ranks"):
+        rc, out, err = _run_cmd(run + [f"--nproc-per-node={MESH_RANKS}", *cmd], MESH_TIMEOUT_S,
+                                {"REPRO_MOE_CF": "8"})
+    for ln in out.splitlines():
+        log(f"16d   {ln}")
+    if rc != 0 or "[train] resumed from step 4" not in out or ckpt.latest_step(str(ck)) != 8:
+        raise AssertionError(f"16d resume on {MESH_RANKS} ranks: rc {rc}: {err[-2000:]}")
+    log(f"16d resumed on {MESH_RANKS} ranks from step 4 to 8 "
+        f"({time.perf_counter() - t0:.1f} s)")
+    rc, want_out = _train_in_process(device, ref)
     if rc != 0:
         raise AssertionError(f"16d: the one-rank run exited {rc}")
-    got, want = _cli_losses(out)[7], _cli_losses(buf.getvalue())[7]
+    got, want = _cli_losses(out)[7], _cli_losses(want_out)[7]
     if abs(got - want) > 1e-4 + 1e-9:
         raise AssertionError(f"16d final loss {got} vs one rank's {want}")
     worst, worst_w = 0.0, 0.0
@@ -4218,8 +4260,104 @@ def mesh_phase(device, workdir: Path) -> None:
         log(f"== phase {label}: {time.perf_counter() - t0:.1f} s")
 
 
+# ----------------------------------------------------------- phase 17
+DRYRUN_TIMEOUT_S = 240
+DRYRUN_RUNS = {  # output file stem: launch.dryrun's arguments
+    "qwen3_14b_single": ("--arch", LM_ARCH, "--mesh", "single"),
+    "moe_train_multi": ("--arch", MOE_ARCH, "--shape", "train_4k", "--mesh", "multi"),
+}
+COUNT_RTOL = 0.05  # counted vs hand-counted FLOPs
+
+
+def dryrun_costs_leg() -> None:
+    """17a: launch.op_costs over 14a's prefill and 15a's train step on the
+    meta device, against the smoke's hand counts and this run's times."""
+    import torch
+
+    from repro_torch.data.synthetic import PipelineState, token_batch
+    from repro_torch.launch.op_costs import op_costs
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import step as tstep
+
+    meta = torch.device("meta")
+    cfg = _lm_config(LM_LAYERS)
+    model = api.init_model(cfg, 0, torch.float32, device=meta)
+    prompts = torch.empty((LM_BATCH, LM_PROMPT), dtype=torch.long, device=meta)
+    cache = api.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_GEN, torch.float32, device=meta)
+    t0 = time.perf_counter()
+    prefill = op_costs(api.prefill, model, {"tokens": prompts}, cfg, cache, meta)
+    state = tstep.init_train_state(_lm_config(TRAIN_LAYERS), 0, torch.float32, device=meta)
+    batch = {k: torch.empty(v.shape, dtype=torch.long, device=meta) for k, v in
+             token_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, PipelineState(0, 0)).items()}
+    step = tstep.make_train_step(_lm_config(TRAIN_LAYERS), AdamWConfig(), device=meta)
+    train = op_costs(step, state, batch)
+    log(f"17a cost pass over both steps on the meta device: {time.perf_counter() - t0:.1f} s")
+    for label, costs in (("14a prefill", prefill), ("15a train step", train)):
+        hand = (_prefill_flops(cfg) if label == "14a prefill" else
+                _train_flops(cfg, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ))
+        warm_ms = MEASURED.get(label)
+        bound_ms = costs.flops / FP32_FLOPS * 1e3
+        warm = "not measured (phase run alone)" if warm_ms is None else f"{warm_ms:.1f} ms"
+        log(f"17a {label}: counted {costs.flops / 1e12:.4f} TFLOP, {costs.bytes / 1e9:.2f} GB "
+            f"moved op by op ({costs.bytes / HBM_BYTES_PER_S * 1e3:.1f} ms at 3.35 TB/s); "
+            f"FLOP bound {bound_ms:.1f} ms at 67 TFLOP/s fp32; hand count "
+            f"{hand / 1e12:.4f} TFLOP ({hand / FP32_FLOPS * 1e3:.1f} ms), counted / hand "
+            f"{costs.flops / hand:.4f}; warm time this run {warm}")
+        if abs(costs.flops / hand - 1) > COUNT_RTOL:
+            raise AssertionError(f"17a {label}: counted {costs.flops} vs hand {hand}")
+
+
+def dryrun_cli_leg(workdir: Path) -> None:
+    """17b: launch.dryrun as two processes at once (fake 256- and 512-rank
+    worlds, no device), then launch.report's rows."""
+    import torch
+
+    from repro_torch.launch import report
+
+    procs = {}
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": ""}
+    for stem, args in DRYRUN_RUNS.items():
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--out",
+               str(workdir / f"dryrun_{stem}.json"), "--verbose"]
+        procs[stem] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                       text=True, env=env, cwd=str(REPO))
+    try:
+        outs = {stem: p.communicate(timeout=DRYRUN_TIMEOUT_S) + (p.returncode,)
+                for stem, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for stem, (out, err, rc) in outs.items():
+        for ln in out.splitlines():
+            log(f"17b   {ln}")
+        if rc != 0:
+            raise AssertionError(f"17b dryrun {stem}: exit {rc}: {err[-3000:]}")
+        results = json.loads((workdir / f"dryrun_{stem}.json").read_text())
+        bad = [k for k, v in results.items() if not v.get("ok")]
+        if bad or not results:
+            raise AssertionError(f"17b dryrun {stem}: cells not ok: {bad}")
+        for mesh in ("single", "multi"):
+            for row in report.rows(results, mesh):
+                log(f"17b {mesh} {row}")
+    log(f"17b two dry-run processes (torch {torch.__version__}, the fake "
+        f"process group imported): every cell ok ({time.perf_counter() - t0:.1f} s)")
+
+
+def dryrun_phase(workdir: Path) -> None:
+    """Phase 17: the dry run, device-free."""
+    for label, fn, args in (("17a (cost pass vs hand counts)", dryrun_costs_leg, ()),
+                            ("17b (dryrun CLI, fake worlds)", dryrun_cli_leg, (workdir,))):
+        t0 = time.perf_counter()
+        fn(*args)
+        log(f"== phase {label}: {time.perf_counter() - t0:.1f} s")
+
+
 def run(device, scale: float = SCALE, reps: int = 5) -> list:
-    """Phases 2-16 on ``device``; returns the kernels records."""
+    """Phases 2-17 on ``device``; returns the kernels records."""
     from repro_torch.core import registry
     from repro_torch.models.gnn import norm_csr
     from repro_torch.sparse import reddit_like
@@ -4288,6 +4426,7 @@ def run(device, scale: float = SCALE, reps: int = 5) -> list:
         phase("phase 15 (LLM training)", lm_training_phase, device, work)
         _empty_cache(device)
         phase("phase 16 (multi-device paths, 4 ranks)", mesh_phase, device, work)
+        phase("phase 17 (dry run, no device)", dryrun_phase, work)
     log(f"main-path launches (sum of the counted runs): {json.dumps(counts)}")
     missing = [name for name in records if counts.get(name, 0) == 0]
     if missing:

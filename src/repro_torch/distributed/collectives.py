@@ -56,10 +56,11 @@ def launched() -> bool:
 
 
 def rank_device(device=None) -> torch.device:
-    """This rank's device: the CPU if the caller asks for it, else
+    """This rank's device: the CPU or the meta device (the dry run's, where
+    nothing is allocated) if the caller asks for it, else
     ``cuda:{LOCAL_RANK % device_count}``; no card raises."""
-    if device is not None and torch.device(device).type == "cpu":
-        return torch.device("cpu")
+    if device is not None and torch.device(device).type in ("cpu", "meta"):
+        return torch.device(torch.device(device).type)
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
     local = int(os.environ.get("LOCAL_RANK", "0"))

@@ -32,7 +32,8 @@ def host_shape(world: int) -> Dict[str, int]:
 def make_mesh(shape: Mapping[str, int], device=None):
     """A `DeviceMesh` of ``shape`` (axis name -> size, in mesh order) over
     the world's ranks, joining the process group first if need be; the
-    world must have exactly as many ranks as the mesh."""
+    world must have exactly as many ranks as the mesh. On the meta device
+    (the dry run, over a fake process group) the mesh is a CPU one."""
     import torch
     from torch.distributed.device_mesh import DeviceMesh
 
@@ -44,7 +45,8 @@ def make_mesh(shape: Mapping[str, int], device=None):
     if n != world:
         raise ValueError(f"a mesh of {dict(shape)} needs {n} ranks; this world has {world}")
     ranks = torch.arange(world).reshape(tuple(shape.values()))
-    return DeviceMesh(dev.type, ranks, mesh_dim_names=tuple(shape))
+    kind = "cpu" if dev.type == "meta" else dev.type
+    return DeviceMesh(kind, ranks, mesh_dim_names=tuple(shape))
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None):

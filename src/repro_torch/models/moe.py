@@ -66,10 +66,22 @@ def _ragged_dot(x: torch.Tensor, w: torch.Tensor, bounds: List[int]) -> torch.Te
     return torch.cat(parts)
 
 
-def _expert_compute(xs, gs, w_gate, w_up, w_down):
-    """xs: (M, D) sorted by group; gs: (E,) group sizes."""
+def _group_sizes(ids: torch.Tensor, n_groups: int, routed: int) -> List[int]:
+    """The number of entries of ``ids`` equal to 0 .. n_groups - 1. On the
+    meta device (the dry run's cost pass, which has no values) a static
+    stand-in: ``routed`` rows split as evenly as they go, the first
+    groups taking one more; the ragged products' work depends only on
+    that total."""
+    if ids.is_meta:
+        base, extra = divmod(routed, n_groups)
+        return [base + (e < extra) for e in range(n_groups)]
+    return torch.bincount(ids, minlength=n_groups)[:n_groups].tolist()
+
+
+def _expert_compute(xs, gs: List[int], w_gate, w_up, w_down):
+    """xs: (M, D) sorted by group; gs: the E group sizes."""
     bounds = [0]
-    for n in gs.tolist():
+    for n in gs:
         bounds.append(bounds[-1] + n)
     h = F.silu(_ragged_dot(xs, w_gate, bounds).float())
     u = _ragged_dot(xs, w_up, bounds).float()
@@ -111,7 +123,7 @@ def moe_ffn_ref(params, x: torch.Tensor, cfg: ArchConfig, variant: str = "auto")
         order = torch.argsort(eflat, stable=True)
         tok = order // mo.top_k
         xs = t[tok]
-        gs = torch.bincount(eflat, minlength=mo.n_experts)
+        gs = _group_sizes(eflat, mo.n_experts, eflat.shape[0])
         y = _expert_compute(xs, gs, params.w_gate, params.w_up, params.w_down)
         contrib = y.float() * gates.reshape(-1)[order][:, None]
         out = torch.zeros((n, d), dtype=torch.float32, device=x.device).index_add_(0, tok, contrib)
@@ -174,9 +186,23 @@ def dispatch_plan(eflat: torch.Tensor, e_loc: int, n_data: int, cap: int):
     idx_in_dest = torch.arange(n, device=eflat.device) - torch.searchsorted(dest, dest)
     keep = idx_in_dest < cap
     slot = torch.where(keep, idx_in_dest, torch.full_like(idx_in_dest, cap - 1))
-    overflow = torch.bincount(dest, minlength=n_data) > cap
+    sent = torch.zeros(n_data, dtype=dest.dtype, device=dest.device)
+    overflow = sent.index_add_(0, dest, torch.ones_like(dest)) > cap  # copies per destination
     written = keep & ~(overflow[dest] & (slot == cap - 1))
     return order, e_sorted, dest, slot, keep, written
+
+
+def send_buffers(t, tok_sorted, e_local, cell, written, n_cells: int, pad_id: int):
+    """The dispatch buffers: row ``cell[i]`` of ``send_x`` (n_cells, D)
+    holds token ``tok_sorted[i]`` of ``t`` and of ``send_e`` its local
+    expert id, for the written copies; other cells hold zeros and
+    ``pad_id``. Copies that are not written go to a spare last cell,
+    which is cut off, so no shape depends on the data."""
+    spare = torch.where(written, cell, torch.full_like(cell, n_cells))
+    send_x = t.new_zeros((n_cells + 1, t.shape[1])).index_copy(0, spare, t[tok_sorted])
+    send_e = torch.full((n_cells + 1,), pad_id, dtype=torch.int32, device=t.device)
+    send_e = send_e.index_copy(0, spare, e_local.to(torch.int32))
+    return send_x[:n_cells], send_e[:n_cells]
 
 
 def moe_ffn_ep(
@@ -209,9 +235,8 @@ def moe_ffn_ep(
     order, e_sorted, dest, slot, keep, written = dispatch_plan(ids.reshape(-1), e_loc, n_data, cap)
     tok_sorted = torch.div(order, k, rounding_mode="floor")
     cell = dest * cap + slot  # (dest, slot) in the flat (n_data * cap) buffer
-    send_x = t.new_zeros((n_data * cap, d)).index_copy(0, cell[written], t[tok_sorted[written]])
-    send_e = torch.full((n_data * cap,), e_loc, dtype=torch.int32, device=x.device)  # pad id
-    send_e = send_e.index_copy(0, cell[written], (e_sorted[written] % e_loc).to(torch.int32))
+    send_x, send_e = send_buffers(t, tok_sorted, e_sorted % e_loc, cell, written, n_data * cap,
+                                  e_loc)
 
     recv_x = collectives.all_to_all(send_x, mesh, data_axis)
     recv_e = collectives.all_to_all(send_e, mesh, data_axis)
@@ -221,7 +246,8 @@ def moe_ffn_ep(
     # every 'model' rank multiplies the same copies by its slice of the
     # experts: the gradient of the copies is the sum of the slices'
     xs = collectives.psum_grad(recv_x[order2], mesh, model_axis)
-    gs = torch.bincount(recv_e[order2], minlength=e_loc + 1)[:e_loc]
+    # on the meta device: this rank's share of the routed copies, n·k
+    gs = _group_sizes(recv_e[order2], e_loc, min(n * k, recv_e.shape[0]))
     y = _expert_compute(xs, gs, params.w_gate, params.w_up, params.w_down)
     if compact:
         # bf16 partial-sum exchange over the TP axis
