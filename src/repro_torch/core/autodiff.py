@@ -68,9 +68,9 @@ def _scheduled(sched, csr: CSR, f: int, op: str, *args):
             resilience.record_fault("decide", "", op, exc, device)
             resilience.record_fallback("scheduler", "reference", op, device)
             runner = resilience.reference_runner(csr, op, device)
-            with obs.span("run", op=op, choice="reference"):
+            with obs.span("run", device, op=op, choice="reference"):
                 return runner(*args)
-        with obs.span("run", op=op, choice=d.choice):
+        with obs.span("run", args[-1].device, op=op, choice=d.choice):
             return runner(*args)
 
 
@@ -182,7 +182,11 @@ class _Attention(torch.autograd.Function):
     are pattern-only SDDMMs ("attention_bwd_e", "attention_bwd_p"), the
     q, k, v gradients runtime-valued SpMMs ("attention_bwd_q/_k/_v")
     whose values are the probs or the softmax VJP's output; the softmax
-    VJP itself is a segment op. Scale is the default 1/sqrt(d)."""
+    VJP itself is a segment op. Scale is the default 1/sqrt(d). The
+    softmax recompute and its VJP are spans of their own
+    (``softmax.recompute``, ``softmax.vjp``) with their device time; the
+    permutation gathers ``probs[perm]`` and ``gl[perm]`` lie outside
+    every span that takes device time."""
 
     @staticmethod
     def forward(ctx, q, k, v, sched, s):
@@ -200,14 +204,16 @@ class _Attention(torch.autograd.Function):
         rowptr, colind, perm = dev["rowptr"], dev["colind"], dev["perm"]
         # recompute the probs (the fused forward never materializes them)
         e = _scheduled(sched, s, q.shape[1], "attention_bwd_e", q, k)
-        probs = ref.row_softmax_ref(rowptr, colind, e * scale)
+        with obs.span("softmax.recompute", g.device, op="attention"):
+            probs = ref.row_softmax_ref(rowptr, colind, e * scale)
         del e
         t, _ = s.transpose_with_perm()
         # grad_V = A^T(probs) @ g
         gv = _scheduled(sched, t, g.shape[1], "attention_bwd_v", probs[perm], g)
         # grad w.r.t. probs: per-edge <g_i, V_j>, then the softmax VJP
         gp = _scheduled(sched, s, g.shape[1], "attention_bwd_p", g, v)
-        gl = ref.row_softmax_bwd_ref(rowptr, colind, probs, gp) * scale
+        with obs.span("softmax.vjp", g.device, op="attention"):
+            gl = ref.row_softmax_bwd_ref(rowptr, colind, probs, gp) * scale
         del gp, probs
         gq = _scheduled(sched, s, k.shape[1], "attention_bwd_q", gl, k)
         gk = _scheduled(sched, t, q.shape[1], "attention_bwd_k", gl[perm], q)

@@ -7,13 +7,32 @@ Port of repro/core/obs.py. Three instruments behind one gate
   spans     nested spans over the decision procedure (``decide`` ->
             ``features``/``estimate``/``shortlist``/``probe``/
             ``guardrail``/``transfer``, ``prepare``, ``run``, the
-            autodiff ``fwd.*``/``bwd.*`` op spans, ``fault``,
-            ``cache.lock_wait``/``cache.merge``, ``drift.reprobe``),
-            recorded in memory only when ``AUTOSAGE_OBS`` is set and this
-            is not a replay run, and exported as Chrome/Perfetto
-            ``trace_event`` JSON. Spans are host time: around an
-            asynchronous CUDA launch they measure the launch, not the
-            kernel.
+            autodiff ``fwd.*``/``bwd.*`` op spans, the attention
+            backward's ``softmax.recompute``/``softmax.vjp``,
+            ``csr.transpose`` (builds only), ``model.norm_csr``,
+            ``fault``, ``cache.lock_wait``/``cache.merge``,
+            ``drift.reprobe``), recorded in memory only when
+            ``AUTOSAGE_OBS`` is set and this is not a replay run, and
+            exported as Chrome/Perfetto ``trace_event`` JSON. A span's
+            wall time is host time: around an asynchronous CUDA launch
+            it measures the launch, not the kernel. Two more views of
+            the same span when it is recorded:
+              * a ``torch.profiler.record_function`` range around its
+                body, named after the span with ``.<op>`` appended
+                (``decide.attention_bwd_q``, ``run.spmm``; a name that
+                already ends in its op stays), ``choice`` in the range's
+                args, so an active profiler puts the port's layers on
+                the device timeline's own clock, on whatever thread ran
+                them (autograd's included);
+              * given the ``device`` its work runs on, a CUDA device, a
+                pair of timing events on the current stream around the
+                body, folded once the end event has completed into the
+                histogram ``autosage_device_ms{span,op,choice}``: the
+                stream time of the call, whatever kernels or torch ops
+                implement it. A fold never waits: it takes only
+                completed pairs, at each new record (the completed head
+                of the queue) and before every registry read (all of
+                them), so a read after a ``synchronize`` sees every pair.
   metrics   the process-wide registry of counters, gauges and
             log-bucketed histograms (p50/p95/p99 without sample storage)
             under the JAX package's metric names
@@ -33,8 +52,8 @@ Port of repro/core/obs.py. Three instruments behind one gate
 
 Contract, as in the JAX package:
 
-  * ``AUTOSAGE_OBS`` unset => no span is recorded and no file is ever
-    created; counters still count in memory.
+  * ``AUTOSAGE_OBS`` unset => no span, range or event is recorded and no
+    file is ever created; counters still count in memory.
   * ``AUTOSAGE_REPLAY_ONLY=1`` => spans and file output are no-ops even
     with ``AUTOSAGE_OBS`` set, so replay runs stay bit-exact.
   * every line of a ``.jsonl`` stream is one complete record in one
@@ -42,7 +61,8 @@ Contract, as in the JAX package:
     interleave whole lines.
 
 This module imports nothing from the rest of the package
-(sparse/csr.py and core/cache.py sit below it in the import graph).
+(sparse/csr.py and core/cache.py sit below it in the import graph), and
+torch only on the enabled path.
 """
 from __future__ import annotations
 
@@ -53,9 +73,10 @@ import math
 import os
 import threading
 import time
+from collections import deque
 from contextlib import contextmanager
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Deque, Dict, List, Optional, Tuple
 
 OBS_SCHEMA = 1
 
@@ -122,13 +143,27 @@ def _render(rec: Tuple) -> Dict[str, Any]:
     return out
 
 
+def _range_name(name: str, args: Dict[str, Any]) -> str:
+    """The profiler range of a span: its name, ``.<op>`` appended unless
+    the name already ends in its op."""
+    op = args.get("op")
+    if op is None or name.endswith(str(op)):
+        return name
+    return f"{name}.{op}"
+
+
 @contextmanager
-def span(name: str, **args: Any):
+def span(name: str, device: Any = None, **args: Any):
     """Record one nested span; a no-op unless `enabled()`. A thread-local
-    stack gives each span its parent and depth."""
+    stack gives each span its parent and depth. The body runs inside a
+    profiler range; with a CUDA ``device`` its stream time goes to
+    ``autosage_device_ms`` once it has completed (a body that raises
+    records none)."""
     if not enabled():
         yield None
         return
+    import torch
+
     stack = getattr(_tls, "stack", None)
     if stack is None:
         stack = _tls.stack = []
@@ -137,7 +172,13 @@ def span(name: str, **args: Any):
     stack.append(name)
     t0 = time.perf_counter_ns()
     try:
-        yield None
+        choice = args.get("choice")
+        with torch.profiler.record_function(
+                _range_name(name, args), None if choice is None else str(choice)):
+            start = _record_event(device) if getattr(device, "type", None) == "cuda" else None
+            yield None
+            if start is not None:
+                _push_device_pair(start, _record_event(device), name, args)
     finally:
         t1 = time.perf_counter_ns()
         stack.pop()
@@ -150,6 +191,61 @@ def span(name: str, **args: Any):
                 _active_dir = obs_dir()
         else:
             _spans_dropped += 1
+
+
+# ------------------------------------------------------ device time
+
+DEVICE_MS = "autosage_device_ms"
+# (start event, end event, labels) of device spans not yet folded, in
+# record order
+_pending: Deque[Tuple[Any, Any, Dict[str, str]]] = deque()
+_pending_lock = threading.Lock()
+
+
+def _record_event(device: Any) -> Any:
+    """A timing event recorded now on ``device``'s current stream."""
+    import torch
+
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+def _push_device_pair(start: Any, end: Any, name: str, args: Dict[str, Any]) -> None:
+    labels = {"span": name}
+    labels.update({k: str(args[k]) for k in ("op", "choice") if k in args})
+    fold_device_times(head_only=True)
+    with _pending_lock:
+        _pending.append((start, end, labels))
+
+
+def fold_device_times(head_only: bool = False) -> None:
+    """Observe ``autosage_device_ms`` for each pending pair whose events
+    have completed: the completed head of the queue, or with
+    ``head_only`` False every completed pair. Never waits on the device;
+    a pair whose events cannot be read any more is dropped."""
+    if not _pending:
+        return
+    done = []
+    with _pending_lock:
+        try:
+            if head_only:
+                while _pending and _pending[0][1].query() and _pending[0][0].query():
+                    done.append(_pending.popleft())
+            else:
+                rest = []
+                for pair in _pending:
+                    (done if pair[1].query() and pair[0].query() else rest).append(pair)
+                _pending.clear()
+                _pending.extend(rest)
+        except Exception:  # noqa: BLE001 - telemetry must not fail the caller
+            _pending.clear()
+    for start, end, labels in done:
+        try:
+            ms = start.elapsed_time(end)
+        except Exception:  # noqa: BLE001
+            continue
+        REGISTRY.observe(DEVICE_MS, ms, **labels)
 
 
 def span_totals_ms() -> Dict[str, float]:
@@ -302,11 +398,13 @@ class MetricsRegistry:
         return out
 
     def hist(self, name: str, **labels: Any) -> Optional[Histogram]:
+        fold_device_times()
         with self._lock:
             return self._hists.get(name, {}).get(_label_key(labels))
 
     def hist_series(self, name: str) -> Dict[Tuple, Histogram]:
         """Every label set of one histogram, label key -> Histogram."""
+        fold_device_times()
         with self._lock:
             return dict(self._hists.get(name, {}))
 
@@ -325,6 +423,7 @@ class MetricsRegistry:
         """Prometheus text exposition: counters and gauges as single
         samples, histograms as cumulative ``_bucket{le=...}`` series plus
         ``_sum`` and ``_count``."""
+        fold_device_times()
         lines: List[str] = []
         with self._lock:
             for kind, store in (("counter", self._counters), ("gauge", self._gauges)):
@@ -352,6 +451,7 @@ class MetricsRegistry:
     def to_dict(self) -> Dict[str, Any]:
         """JSON snapshot, the machine-readable twin of the Prometheus
         text (obs_cli ``summary`` aggregates these across workers)."""
+        fold_device_times()
         out: Dict[str, Any] = {
             "schema": OBS_SCHEMA,
             "t_mono": time.monotonic(),
@@ -642,6 +742,8 @@ def reset() -> None:
         _spans_flushed = 0
         _spans_dropped = 0
         _active_dir = None
+    with _pending_lock:
+        _pending.clear()
     REGISTRY.reset()
     if getattr(_tls, "stack", None):
         _tls.stack = []

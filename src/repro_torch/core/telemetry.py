@@ -1,26 +1,25 @@
-"""CSV + JSON telemetry (paper §10: every CSV gets a .meta.json sidecar
-with device, software versions, and the AUTOSAGE_* env snapshot).
+"""JSON telemetry (paper §10) and the device, software-version and
+AUTOSAGE_* env snapshot of `_meta`.
 
-Port of repro/core/telemetry.py: the CSV writer, the per-op
-decide/prepare stream (with the transfer provenance of transferred
-decisions), the attention-decision stream, the batch-scheduler stream,
-the resilience layer's fault stream and the serving tier's request
-stream. JSONL streams
-keep one unbuffered O_APPEND handle per process and write every record
-as one write() of one full line, so concurrent writer processes
+Port of repro/core/telemetry.py, apart from its CSV writer, which only
+the JAX package's paper tables call: the per-op decide/prepare stream
+(with the transfer provenance of transferred decisions), the
+attention-decision stream, the batch-scheduler stream, the resilience
+layer's fault stream and the serving tier's request stream. JSONL
+streams keep one unbuffered O_APPEND handle per process and write every
+record as one write() of one full line, so concurrent writer processes
 interleave whole records.
 """
 from __future__ import annotations
 
 import atexit
-import csv
 import json
 import os
 import platform
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Optional
 
 import torch
 
@@ -42,19 +41,6 @@ def _meta(device: torch.device) -> Dict:
         "platform": platform.platform(),
         "env": _env_snapshot(),
     }
-
-
-def write_csv(
-    path: str, header: Sequence[str], rows: List[Sequence], device: torch.device
-) -> None:
-    p = Path(path)
-    p.parent.mkdir(parents=True, exist_ok=True)
-    with open(p, "w", newline="") as f:
-        w = csv.writer(f)
-        w.writerow(header)
-        w.writerows(rows)
-    with open(str(p) + ".meta.json", "w") as f:
-        json.dump(_meta(device), f, indent=1)
 
 
 _handles: Dict[str, object] = {}

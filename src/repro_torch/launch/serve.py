@@ -196,12 +196,13 @@ class GNNServer:
 
     def run(self, csr, decision: Decision):
         """The runner of a served decision (AutoSage-compatible). Each call
-        records a ``run`` span: host time, so around a CUDA launch it
-        measures the launch, not the kernel."""
+        records a ``run`` span: its wall time is host time, so around a
+        CUDA launch it measures the launch; its device time (on a card)
+        goes to ``autosage_device_ms``."""
         runner = self.bs.build_runner(csr, decision)
 
         def served(*args):
-            with obs.span("run", op=decision.op, choice=decision.choice):
+            with obs.span("run", args[-1].device, op=decision.op, choice=decision.choice):
                 return runner(*args)
 
         return served

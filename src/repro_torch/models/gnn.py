@@ -26,15 +26,17 @@ from torch import nn
 
 from repro_torch import api
 from repro_torch.configs.gnn_sage import CONFIG as SAGE_CONFIG
+from repro_torch.core import obs
 from repro_torch.core.features import resolve_device
 from repro_torch.sparse.csr import CSR
 
 
 def norm_csr(csr: CSR) -> CSR:
     """Row-normalized adjacency (mean aggregator)."""
-    deg = np.maximum(csr.degrees, 1).astype(np.float32)
-    val = csr.values_or_ones(np.float32) / np.repeat(deg, csr.degrees)
-    return CSR(csr.rowptr, csr.colind, val, csr.n_rows, csr.n_cols)
+    with obs.span("model.norm_csr"):
+        deg = np.maximum(csr.degrees, 1).astype(np.float32)
+        val = csr.values_or_ones(np.float32) / np.repeat(deg, csr.degrees)
+        return CSR(csr.rowptr, csr.colind, val, csr.n_rows, csr.n_cols)
 
 
 def _dims(in_dim: int, n_classes: int, d_model: int, n_layers: int) -> List[int]:

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import time
 from typing import Dict, MutableMapping, Optional, Tuple
 
 import numpy as np
@@ -16,7 +17,8 @@ import numpy as np
 
 class _TransposeStats(MutableMapping):
     """Transposed-layout cache telemetry, backed by the process metrics
-    registry (``autosage_transpose_total{event=built|hits}``) so there is
+    registry (``autosage_transpose_total{event=built|hits}``; each build's
+    host time is ``autosage_transpose_ms``) so there is
     exactly one accounting path (core/obs.py). Keeps the historical
     dict surface — ``TRANSPOSE_STATS["built"] += 1``, membership,
     iteration. The registry import is lazy per access: repro_torch.sparse.csr sits
@@ -201,17 +203,22 @@ class CSR:
             t_rowptr, t_colind, order, t_sig = cached
             TRANSPOSE_STATS["hits"] += 1
         else:
-            rows = np.repeat(
-                np.arange(self.n_rows, dtype=np.int64), self.degrees
-            )
-            # sort edges by (col, row): the transposed CSR order
-            order = np.lexsort((rows, self.colind)).astype(np.int64)
-            t_rowptr = np.zeros(self.n_cols + 1, dtype=np.int32)
-            np.add.at(t_rowptr[1:], self.colind, 1)
-            np.cumsum(t_rowptr, out=t_rowptr)
-            t_colind = rows[order].astype(np.int32)
-            t = CSR(t_rowptr, t_colind, None, self.n_cols, self.n_rows)
-            t_sig = graph_signature(t)
+            from repro_torch.core import obs  # lazy: sparse sits below core
+
+            t0 = time.perf_counter()
+            with obs.span("csr.transpose"):
+                rows = np.repeat(
+                    np.arange(self.n_rows, dtype=np.int64), self.degrees
+                )
+                # sort edges by (col, row): the transposed CSR order
+                order = np.lexsort((rows, self.colind)).astype(np.int64)
+                t_rowptr = np.zeros(self.n_cols + 1, dtype=np.int32)
+                np.add.at(t_rowptr[1:], self.colind, 1)
+                np.cumsum(t_rowptr, out=t_rowptr)
+                t_colind = rows[order].astype(np.int32)
+                t = CSR(t_rowptr, t_colind, None, self.n_cols, self.n_rows)
+                t_sig = graph_signature(t)
+            obs.REGISTRY.observe("autosage_transpose_ms", (time.perf_counter() - t0) * 1e3)
             while len(_TRANSPOSE_BY_SIG) >= _TRANSPOSE_BY_SIG_CAP:
                 _TRANSPOSE_BY_SIG.pop(next(iter(_TRANSPOSE_BY_SIG)))
             _TRANSPOSE_BY_SIG[sig] = (t_rowptr, t_colind, order, t_sig)
