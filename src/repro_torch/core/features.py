@@ -18,6 +18,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.core import obs
 from repro_torch.sparse.csr import CSR, graph_signature
 
 
@@ -222,27 +223,12 @@ class InputFeatures:
 
     @staticmethod
     def from_csr(csr: CSR, f: int, op: str) -> "InputFeatures":
-        qs = csr.degree_quantiles((0.5, 0.9, 0.99, 1.0))
-        nnz = csr.nnz
-        waste, w_est = _block_padding_estimate(csr)
         return InputFeatures(
-            n_rows=csr.n_rows,
-            n_cols=csr.n_cols,
-            nnz=nnz,
-            avg_deg=nnz / max(csr.n_rows, 1),
-            deg_p50=float(qs[0]),
-            deg_p90=float(qs[1]),
-            deg_p99=float(qs[2]),
-            deg_max=float(qs[3]),
-            skew=float(qs[2] / max(qs[0], 1.0)),
-            density=nnz / max(csr.n_rows * csr.n_cols, 1),
+            **_structure_stats(csr),
             f=f,
             op=op,
-            graph_sig=graph_signature(csr),
             f_mod_4=(f % 4 == 0),
             dup_edges=(csr.has_duplicate_edges() if op == "attention" else False),
-            padding_waste=waste,
-            ell_width_est=w_est,
         )
 
     def hub_threshold(self) -> int:
@@ -286,6 +272,42 @@ def features_from_neutral(neutral: Dict[str, object]) -> InputFeatures:
     if missing:
         raise ValueError(f"neutral features missing required fields: {missing}")
     return InputFeatures(**kwargs)
+
+
+def _structure_stats(csr: CSR) -> Dict[str, object]:
+    """The fields of `InputFeatures` that read the structure alone (sizes,
+    degree quantiles, padding estimate, signature), memoized on the CSR
+    object as `graph_signature` is: a training loop decides several ops
+    on the same graph objects every step, and the two O(n_rows) passes
+    over the degrees would otherwise run in each decide. The memo dies
+    with the object and assumes its arrays are not mutated in place;
+    a transpose or a `structural()` view is an object of its own and
+    computes its own. Counted in ``autosage_features_total{event}``."""
+    memo = getattr(csr, "_features_memo", None)
+    if memo is not None:
+        obs.REGISTRY.inc(obs.FEATURES_TOTAL, event="hits")
+        return memo
+    qs = csr.degree_quantiles((0.5, 0.9, 0.99, 1.0))
+    nnz = csr.nnz
+    waste, w_est = _block_padding_estimate(csr)
+    memo = dict(
+        n_rows=csr.n_rows,
+        n_cols=csr.n_cols,
+        nnz=nnz,
+        avg_deg=nnz / max(csr.n_rows, 1),
+        deg_p50=float(qs[0]),
+        deg_p90=float(qs[1]),
+        deg_p99=float(qs[2]),
+        deg_max=float(qs[3]),
+        skew=float(qs[2] / max(qs[0], 1.0)),
+        density=nnz / max(csr.n_rows * csr.n_cols, 1),
+        graph_sig=graph_signature(csr),
+        padding_waste=waste,
+        ell_width_est=w_est,
+    )
+    object.__setattr__(csr, "_features_memo", memo)
+    obs.REGISTRY.inc(obs.FEATURES_TOTAL, event="built")
+    return memo
 
 
 def _block_padding_estimate(csr: CSR) -> tuple:

@@ -42,7 +42,8 @@ Port of repro/core/obs.py. Three instruments behind one gate
             ``autosage_fallback_total{from,to}``,
             ``autosage_cache_lock_wait_ms{outcome}``,
             ``autosage_transfer_verdict_total{verdict}``, the serving
-            tier's ``autosage_serve_requests_total{tier,op}``, ...),
+            tier's ``autosage_serve_requests_total{tier,op}``,
+            core/features.py's ``autosage_features_total{event}``, ...),
             exported in Prometheus text format. It always counts in
             memory; `BatchScheduler.stats()` and sparse/csr.py's
             TRANSPOSE_STATS are views over it.
@@ -574,6 +575,11 @@ def scorecard() -> Dict[str, Dict[str, Any]]:
     return out
 
 
+# per-object memo of a graph's decide features (core/features.py):
+# event "built" computes the structure statistics, "hits" reuses them
+FEATURES_TOTAL = "autosage_features_total"
+
+
 # -------------------------------------------------------------- serving
 
 # metric names of the online serving tier (launch/serve.py):
@@ -759,6 +765,7 @@ def summary_text() -> str:
         ("autosage_transfers_total", "transfers"),
         ("autosage_drift_events_total", "drift events"),
         ("autosage_transpose_total", "csr transposes"),
+        (FEATURES_TOTAL, "graph features"),
         (SERVE_REQUESTS, "serve requests"),
         (PROBE_STALLS, "probe stalls"),
     ):
