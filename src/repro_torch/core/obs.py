@@ -579,6 +579,15 @@ def scorecard() -> Dict[str, Dict[str, Any]]:
 # event "built" computes the structure statistics, "hits" reuses them
 FEATURES_TOTAL = "autosage_features_total"
 
+# the LLM stack's layer plans (models/attention.py, models/moe.py):
+#   autosage_band_csr_total{event=built|hits}  a sliding window's band
+#                                              CSR built, or its memo hit
+#   autosage_moe_rows_total                    token copies dispatched to
+#                                              the experts, remat
+#                                              recomputes included
+BAND_CSR_TOTAL = "autosage_band_csr_total"
+MOE_ROWS_TOTAL = "autosage_moe_rows_total"
+
 
 # -------------------------------------------------------------- serving
 
@@ -766,6 +775,8 @@ def summary_text() -> str:
         ("autosage_drift_events_total", "drift events"),
         ("autosage_transpose_total", "csr transposes"),
         (FEATURES_TOTAL, "graph features"),
+        (BAND_CSR_TOTAL, "band csrs"),
+        (MOE_ROWS_TOTAL, "moe rows"),
         (SERVE_REQUESTS, "serve requests"),
         (PROBE_STALLS, "probe stalls"),
     ):

@@ -235,17 +235,27 @@ class AutoSage:
         iter_ms_total = [0.0]
 
         def _time(v: registry.Variant) -> float:
-            times = []
-            for sub, args in zip(subs, args_per_sub):
-                run = v.build(v.timed_prepare(sub), self.device)
+            times, runs = [], []
+
+            def reading(run, args) -> float:
                 res = probe_mod.time_callable(
                     lambda: run(*args), self.device, iters=self.probe_iters,
                     cap_ms=self.probe_cap_ms, name=v.full_name(),
                 )
                 iter_ms_total[0] += sum(res.times_ms)
-                times.append(res.median_ms)
+                return res.median_ms
+
+            for sub, args in zip(subs, args_per_sub):
+                runs.append(v.build(v.timed_prepare(sub), self.device))
+                times.append(reading(runs[-1], args))
             if len(times) == 2:
-                slope = (times[1] - times[0]) / max(subs[1].n_rows - subs[0].n_rows, 1)
+                span = max(subs[1].n_rows - subs[0].n_rows, 1)
+                if (times[1] - times[0]) / span * csr.n_rows < times[1]:
+                    # the graph holds the 2x subgraph's rows and more, so
+                    # an extrapolation below that subgraph's reading may be
+                    # a stall in one reading: measure both once more
+                    times = [reading(r, a) for r, a in zip(runs, args_per_sub)]
+                slope = (times[1] - times[0]) / span
                 if slope > 0:
                     return slope * csr.n_rows  # extrapolated marginal cost
             return times[-1]

@@ -58,12 +58,14 @@ def init_model(cfg: ArchConfig, key: Key = 0, dtype=torch.float32, device=None):
     return transformer.init_lm(cfg, key, dtype, device)
 
 
-def forward(model, batch: Dict, cfg: ArchConfig, device=None, mesh=None) -> torch.Tensor:
-    """Teacher-forcing logits (B, S, V), fp32."""
+def forward(model, batch: Dict, cfg: ArchConfig, device=None, mesh=None,
+            sage=None) -> torch.Tensor:
+    """Teacher-forcing logits (B, S, V), fp32. ``sage`` schedules the
+    window attention of a config with a layer plan (Mellum2)."""
     batch = _inputs(batch, _on(model, device))
     if _is_audio(cfg):
         return encdec.encdec_forward(model, batch, cfg)
-    return transformer.lm_forward(model, batch, cfg, mesh)
+    return transformer.lm_forward(model, batch, cfg, mesh, sage)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device=None) -> Dict:

@@ -4,10 +4,18 @@ long-context decode.
 
 Port of repro/models/attention.py, with
 ``csr_window_attention_sharded``, the long-context decode over a cache
-whose sequence is split over the ranks of a mesh. Every product is a
-plain torch op, as JAX evaluates it with plain XLA ops: no Pallas
-kernel is on this path. Logits and softmax are fp32; the additive mask
-is NEG_INF = -1e30.
+whose sequence is split over the ranks of a mesh. The paths the JAX
+package has compute every product with plain torch ops, as JAX does with
+plain XLA ops. Logits and softmax are fp32; the additive mask is
+NEG_INF = -1e30.
+
+A config with a per-layer plan (`configs.layers.layer_plan`, Mellum2)
+trains through `layer_attention`: each layer's own rope, and on a
+sliding-window layer `csr_band_attention`, the paper's CSR attention over
+the causal band (`band_csr`), one `api.attention` call per query head.
+Given a scheduler (``sage``) those calls and their backward run the
+scheduled hand kernels; without one, the plain reference oracles. The
+full layers run exact blockwise-causal attention in plain torch.
 
 KV cache layout: {"k": (B, L, Hkv, Dh), "v": (B, L, Hkv, Dh), "pos": int}.
 A step writes the cache's tensors in place (JAX's `dynamic_update_slice`,
@@ -16,12 +24,17 @@ start clamped alike) and returns a dict that shares them with
 """
 from __future__ import annotations
 
+import collections
 import os
+import threading
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch import api
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import obs
 from repro_torch.distributed import collectives
 from repro_torch.distributed.sharding import mesh_shape
 from repro_torch.models.modules import (
@@ -35,6 +48,7 @@ from repro_torch.models.modules import (
     write_along_seq,
     zeros,
 )
+from repro_torch.sparse.csr import CSR
 
 
 # ------------------------------------------------------------ GQA params
@@ -56,7 +70,7 @@ def init_gqa(gen, cfg: ArchConfig, dtype=torch.float32) -> Params:
     return Params(**p)
 
 
-def _qkv(params, x, cfg: ArchConfig, positions):
+def _qkv(params, x, cfg: ArchConfig, positions, rope=None):
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     q = linear(x, params.wq, getattr(params, "bq", None)).reshape(b, s, h, dh)
@@ -65,8 +79,8 @@ def _qkv(params, x, cfg: ArchConfig, positions):
     if cfg.qk_norm:
         q = rmsnorm(q, params.q_norm, cfg.norm_eps)
         k = rmsnorm(k, params.k_norm, cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q = apply_rope(q, positions, cfg.rope_theta, rope)
+    k = apply_rope(k, positions, cfg.rope_theta, rope)
     return q, k, v
 
 
@@ -144,11 +158,13 @@ def gqa_attention(
     positions: torch.Tensor,
     cache: Optional[Dict] = None,
     window: Optional[int] = None,
+    rope=None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Full (or banded) causal attention; writes the cache when given."""
+    """Full (or banded) causal attention; writes the cache when given.
+    ``rope`` (a `configs.layers.Rope`) replaces the config's theta."""
     b, s, _ = x.shape
     dh = cfg.resolved_head_dim
-    q, k, v = _qkv(params, x, cfg, positions)
+    q, k, v = _qkv(params, x, cfg, positions, rope)
     scale = 1.0 / dh ** 0.5
     if cache is not None:
         pos = cache["pos"]
@@ -171,6 +187,86 @@ def gqa_attention(
             out = _sdpa(q, k, v, causal_mask(s, s, window, x.device), scale)
         new_cache = None
     return linear(out, params.wo), new_cache
+
+
+# ------------------------------- per-layer plans: the band as a CSR
+_BAND_CAP = 8  # (sequence length, window, batch) layouts kept
+_bands: "collections.OrderedDict[Tuple[int, int, int], CSR]" = collections.OrderedDict()
+_bands_lock = threading.Lock()
+
+
+def band_csr(seq_len: int, window: int, batch: int = 1) -> CSR:
+    """The causal band of a sliding window as a CSR over ``batch``
+    packed sequences: row b * seq_len + t holds the columns
+    b * seq_len + max(0, t - window + 1) .. b * seq_len + t, in order.
+    Memoized per (seq_len, window, batch), so every step gets the same
+    object and the scheduler's per-object memos (features, transpose,
+    device uploads, runners) hit; ``autosage_band_csr_total{event}``
+    counts builds and hits."""
+    key = (int(seq_len), int(window), int(batch))
+    with _bands_lock:
+        hit = _bands.get(key)
+        if hit is not None:
+            _bands.move_to_end(key)
+            obs.REGISTRY.inc(obs.BAND_CSR_TOTAL, event="hits")
+            return hit
+        t = np.arange(seq_len, dtype=np.int64)
+        lo = np.maximum(t - window + 1, 0)
+        deg = np.tile(t - lo + 1, batch)
+        rowptr = np.zeros(batch * seq_len + 1, dtype=np.int64)
+        np.cumsum(deg, out=rowptr[1:])
+        rows = np.repeat(np.arange(batch * seq_len, dtype=np.int64), deg)
+        first = np.tile(lo, batch) + np.repeat(np.arange(batch, dtype=np.int64) * seq_len, seq_len)
+        colind = first[rows] + (np.arange(rowptr[-1], dtype=np.int64) - rowptr[rows])
+        csr = CSR(rowptr.astype(np.int32), colind.astype(np.int32), None, batch * seq_len,
+                  batch * seq_len)
+        _bands[key] = csr
+        while len(_bands) > _BAND_CAP:
+            _bands.popitem(last=False)
+        obs.REGISTRY.inc(obs.BAND_CSR_TOTAL, event="built")
+        return csr
+
+
+def csr_band_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
+                       sage=None) -> torch.Tensor:
+    """Sliding-window causal attention as CSR attention over `band_csr`:
+    q (B, S, H, Dh), k and v (B, S, Hkv, Dh) -> (B, S, H * Dh), one
+    `api.attention` call per query head h, over KV head h // (H / Hkv),
+    at the default scale 1/sqrt(Dh). ``sage`` schedules each call and
+    its backward; without it the reference oracles run."""
+    b, s, h, dh = q.shape
+    hkv = k.shape[2]
+    csr = band_csr(s, window, b)
+    qf = q.reshape(b * s, h, dh)
+    ks = [k.reshape(b * s, hkv, dh)[:, j].contiguous() for j in range(hkv)]
+    vs = [v.reshape(b * s, hkv, dh)[:, j].contiguous() for j in range(hkv)]
+    g = h // hkv
+    outs = [api.attention(csr, qf[:, i].contiguous(), ks[i // g], vs[i // g], sage=sage)
+            for i in range(h)]
+    return torch.stack(outs, dim=1).reshape(b, s, h * dh)
+
+
+def layer_attention(params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
+                    layer, cache: Optional[Dict] = None, sage=None
+                    ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """The attention of one layer of a per-layer plan (``layer``, a
+    `configs.layers.LayerAttn`), with that layer's rope. Without a
+    cache: a window layer through `csr_band_attention` (span
+    ``lm.swa_attention``), a full layer through exact blockwise-causal
+    attention (span ``lm.full_attention``); both spans take the device
+    time of the attention between the projections. With a cache, the
+    dense masked path of `gqa_attention`, banded on a window layer."""
+    if cache is not None:
+        return gqa_attention(params, x, cfg, positions, cache, window=layer.window,
+                             rope=layer.rope)
+    q, k, v = _qkv(params, x, cfg, positions, layer.rope)
+    if layer.window is not None:
+        with obs.span("lm.swa_attention", x.device):
+            out = csr_band_attention(q, k, v, layer.window, sage)
+    else:
+        with obs.span("lm.full_attention", x.device):
+            out = _sdpa_causal_chunked(q, k, v, 1.0 / cfg.resolved_head_dim ** 0.5)
+    return linear(out, params.wo), None
 
 
 # ------------------------------------------ CSR (window+sink) attention

@@ -12,6 +12,7 @@ Weights require grad; the serving entry points run under
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Union
 
 import numpy as np
@@ -162,13 +163,52 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / head_dim))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+def yarn_freqs(head_dim: int, theta: float, factor: float, original_max_positions: int,
+               beta_fast: float, beta_slow: float, device=None) -> torch.Tensor:
+    """YaRN's inverse frequencies (Hugging Face's ``_compute_yarn_parameters``,
+    ``truncate`` on): dims below the one where ``beta_fast`` rotations
+    fit ``original_max_positions`` keep theta's frequency, dims above
+    the one for ``beta_slow`` take it over ``factor``, and a linear ramp
+    blends the dims between."""
+    def correction_dim(rotations: float) -> float:
+        return (head_dim * math.log(original_max_positions / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+
+    low = max(math.floor(correction_dim(beta_fast)), 0)
+    high = min(math.ceil(correction_dim(beta_slow)), head_dim - 1)
+    extrapolation = rope_freqs(head_dim, theta, device)
+    interpolation = extrapolation / factor
+    ramp = (torch.arange(head_dim // 2, dtype=torch.float32, device=device) - low) / (
+        (high - low) if high != low else 0.001)
+    keep = 1 - torch.clamp(ramp, 0, 1)  # the share of theta's own frequency
+    return interpolation * (1 - keep) + extrapolation * keep
+
+
+def rope_table(rope, head_dim: int, device=None):
+    """(inverse frequencies, cos/sin scale) of a `configs.layers.Rope`."""
+    if rope.kind == "default":
+        return rope_freqs(head_dim, rope.theta, device), 1.0
+    if rope.kind == "yarn":
+        return yarn_freqs(head_dim, rope.theta, rope.factor, rope.original_max_positions,
+                          rope.beta_fast, rope.beta_slow, device), rope.attention_factor
+    raise ValueError(f"rope kind {rope.kind!r} is not default or yarn")
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               rope=None) -> torch.Tensor:
     """x: (..., S, H, Dh); positions: (..., S). Rotates the two halves of
-    the head dimension (not interleaved pairs), as the JAX package does."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)  # (Dh/2,)
+    the head dimension (not interleaved pairs), as the JAX package does.
+    ``rope`` (a `configs.layers.Rope`), where given, sets the
+    frequencies and the cos/sin scale in place of ``theta``'s."""
+    if rope is None:
+        freqs, scale = rope_freqs(x.shape[-1], theta, x.device), 1.0  # (Dh/2,)
+    else:
+        freqs, scale = rope_table(rope, x.shape[-1], x.device)
     ang = positions[..., None].float() * freqs  # (..., S, Dh/2)
     cos = torch.cos(ang)[..., None, :]  # (..., S, 1, Dh/2)
     sin = torch.sin(ang)[..., None, :]
+    if scale != 1.0:
+        cos, sin = cos * scale, sin * scale
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import obs
 from repro_torch.distributed import collectives
 from repro_torch.distributed.sharding import mesh_shape
 from repro_torch.models.modules import Params, dense_init, init_swiglu, normal, swiglu
@@ -79,7 +80,9 @@ def _group_sizes(ids: torch.Tensor, n_groups: int, routed: int) -> List[int]:
 
 
 def _expert_compute(xs, gs: List[int], w_gate, w_up, w_down):
-    """xs: (M, D) sorted by group; gs: the E group sizes."""
+    """xs: (M, D) sorted by group; gs: the E group sizes. Counts the M
+    rows dispatched in ``autosage_moe_rows_total``."""
+    obs.REGISTRY.inc(obs.MOE_ROWS_TOTAL, xs.shape[0])
     bounds = [0]
     for n in gs:
         bounds.append(bounds[-1] + n)

@@ -15,10 +15,18 @@ On a mesh (``mesh=``, a process mesh of `launch.mesh`) each rank runs
 its own rows: MoE layers take the expert-parallel path, and with
 ``REPRO_LONG_ATTN=sharded`` long-context decode takes the sharded CSR
 window attention over this rank's slice of the cache.
+A config with a per-layer attention plan (`configs.layers.layer_plan`,
+Mellum2) gives each layer its own attention (`attention.layer_attention`):
+its sliding-window layers run CSR attention over the causal band, through
+the scheduler's hand kernels where ``sage`` is given (the plain reference
+oracles where it is not). Every other config ignores ``sage``, and its
+products stay the plain torch ops of the JAX package's twin.
+Spans (core/obs.py, with device time): ``lm.moe`` around each MoE FFN,
+``lm.head`` around the final norm and the unembedding.
 
 Entry points:
   init_lm(cfg, key, dtype, device)             -> LM
-  lm_forward(model, batch, cfg)                -> logits   (teacher forcing)
+  lm_forward(model, batch, cfg, mesh, sage)    -> logits   (teacher forcing)
   init_lm_cache(cfg, batch, max_len, dtype, device) -> cache
   lm_prefill / lm_decode_step                  -> serving, with KV/SSM caches
   lm_params_from_jax, lm_cache_from_jax, lm_cache_to_numpy: carry-over
@@ -35,6 +43,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.layers import layer_plan
+from repro_torch.core import obs
 from repro_torch.distributed.sharding import mesh_shape, sanitize, to_placements
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -98,7 +108,12 @@ def block_apply(
     window: Optional[int],
     long_ctx: bool,
     mesh=None,
+    layer=None,
+    sage=None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """One layer; ``layer`` (a `configs.layers.LayerAttn`) is its entry
+    of the config's plan, None without one; ``sage`` schedules the
+    plan's window attention."""
     kind = p.kind
     h = rmsnorm(x, p.ln1, cfg.norm_eps)
     new_cache = cache
@@ -120,6 +135,8 @@ def block_apply(
             y = rglru_mod.rglru_forward(p.mixer, h, cfg)
     elif cfg.mla:
         y, new_cache = attn.mla_attention(p.attn, h, cfg, positions, cache)
+    elif layer is not None:
+        y, new_cache = attn.layer_attention(p.attn, h, cfg, positions, layer, cache, sage)
     elif long_ctx and cache is not None:
         if os.environ.get("REPRO_LONG_ATTN") == "sharded" and mesh is not None:
             y, new_cache = attn.csr_window_attention_sharded(p.attn, h, cfg, positions, cache,
@@ -132,7 +149,11 @@ def block_apply(
     ffn = getattr(p, "ffn", None)
     if ffn is not None:
         h2 = rmsnorm(x, p.ln2, cfg.norm_eps)
-        f = moe_mod.moe_ffn(ffn, h2, cfg, mesh) if kind == "moe" else swiglu(ffn, h2)
+        if kind == "moe":
+            with obs.span("lm.moe", x.device):
+                f = moe_mod.moe_ffn(ffn, h2, cfg, mesh)
+        else:
+            f = swiglu(ffn, h2)
         x = x + f
     return x, new_cache
 
@@ -227,45 +248,54 @@ def activation_constraint(x: torch.Tensor, mesh) -> torch.Tensor:
 
 
 def _run_blocks(model: LM, x, cfg: ArchConfig, positions, caches: Optional[Dict],
-                long_ctx: bool, mesh=None) -> Tuple[torch.Tensor, Optional[Dict]]:
+                long_ctx: bool, mesh=None, sage=None) -> Tuple[torch.Tensor, Optional[Dict]]:
     window = cfg.hybrid.local_window if cfg.hybrid else None
+    plan = layer_plan(cfg)
+
+    def layer(i: int):
+        return None if plan is None else plan[i]
+
     if caches is None:  # training / teacher forcing: remat each tail unit
         head, unit, _ = _stack_plan(cfg)
         blocks = list(model.blocks)
-        for blk in blocks[:len(head)]:
-            x, _ = block_apply(blk, x, cfg, positions, None, window, False, mesh)
+        for i, blk in enumerate(blocks[:len(head)]):
+            x, _ = block_apply(blk, x, cfg, positions, None, window, False, mesh, layer(i), sage)
 
-        def unit_apply(xu, unit_blocks):
+        def unit_apply(xu, unit_layers):  # [(block, its entry of the plan)]
             xu = activation_constraint(xu, mesh)
-            for blk in unit_blocks:
-                xu, _ = block_apply(blk, xu, cfg, positions, None, window, False, mesh)
+            for blk, attn_layer in unit_layers:
+                xu, _ = block_apply(blk, xu, cfg, positions, None, window, False, mesh,
+                                    attn_layer, sage)
             return xu
 
         for i in range(len(head), len(blocks), len(unit)):
-            x = remat(unit_apply, x, blocks[i:i + len(unit)])
+            x = remat(unit_apply, x, [(blocks[j], layer(j)) for j in range(i, i + len(unit))])
         return x, None
     head, unit, _ = _stack_plan(cfg)
     new_layers = []
     for i, (blk, c) in enumerate(zip(model.blocks, caches["layers"])):
         if i >= len(head) and (i - len(head)) % len(unit) == 0:
             x = activation_constraint(x, mesh)
-        x, c2 = block_apply(blk, x, cfg, positions, c, window, long_ctx, mesh)
+        x, c2 = block_apply(blk, x, cfg, positions, c, window, long_ctx, mesh, layer(i))
         new_layers.append(c2)
     return x, {"layers": new_layers}
 
 
 def _logits(model: LM, x, cfg: ArchConfig) -> torch.Tensor:
-    h = rmsnorm(x, model.final_norm, cfg.norm_eps)
-    w = model.embed.T if cfg.tie_embeddings else model.unembed
-    return (h @ w.to(h.dtype)).float()
+    with obs.span("lm.head", x.device):
+        h = rmsnorm(x, model.final_norm, cfg.norm_eps)
+        w = model.embed.T if cfg.tie_embeddings else model.unembed
+        return (h @ w.to(h.dtype)).float()
 
 
-def lm_forward(model: LM, batch: Dict, cfg: ArchConfig, mesh=None) -> torch.Tensor:
-    """Teacher-forcing forward. batch: tokens (B, S) [+ patch_embeds]."""
+def lm_forward(model: LM, batch: Dict, cfg: ArchConfig, mesh=None, sage=None) -> torch.Tensor:
+    """Teacher-forcing forward. batch: tokens (B, S) [+ patch_embeds].
+    ``sage`` schedules the window attention of a config with a layer
+    plan; other configs ignore it."""
     x = _embed_inputs(model, batch, cfg)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    x, _ = _run_blocks(model, x, cfg, positions, None, long_ctx=False, mesh=mesh)
+    x, _ = _run_blocks(model, x, cfg, positions, None, long_ctx=False, mesh=mesh, sage=sage)
     return _logits(model, x, cfg)
 
 

@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import obs
 from repro_torch.core.features import resolve_device
 from repro_torch.distributed import collectives
 from repro_torch.distributed.sharding import (
@@ -153,15 +154,22 @@ def _grads(loss, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {n: torch.zeros_like(p) if g is None else g for (n, p), g in zip(params.items(), grads)}
 
 
-def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, device=None, mesh=None):
+def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, device=None, mesh=None, sage=None):
+    """One AdamW step of the loss of ``batch`` (tokens, labels). ``sage``
+    (an `AutoSage`) schedules the window attention of a config with a
+    layer plan (Mellum2); the mesh step takes none. Span ``lm.loss``
+    times the cross-entropy."""
     dev = resolve_device(device)
     if mesh is not None:
+        if sage is not None:
+            raise ValueError("make_train_step: the mesh step schedules no attention (sage=)")
         return _mesh_train_step(cfg, opt_cfg, dev, mesh)
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         params = dict(state.params.named_parameters())
-        logits = api.forward(state.params, batch, cfg, device=dev)
-        loss, aux = cross_entropy(logits, _labels(batch, dev))
+        logits = api.forward(state.params, batch, cfg, device=dev, sage=sage)
+        with obs.span("lm.loss", dev):
+            loss, aux = cross_entropy(logits, _labels(batch, dev))
         grads = _grads(loss, params)
         _, new_opt, opt_aux = adamw_update(opt_cfg, grads, params, state.opt)
         metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()},

@@ -90,8 +90,10 @@ def test_every_slice_module_is_checked():
         "src/repro_torch/checkpoint/ckpt.py",
         "chip_smoke.py",
     } <= checked
-    archs = {f.stem for f in (PORT / "configs").glob("*.py")} - {"__init__", "base"}
-    assert len(archs) == 11  # every architecture, gnn_sage too
+    archs = {f.stem for f in (PORT / "configs").glob("*.py")} - {"__init__", "base", "layers"}
+    # every architecture, gnn_sage too, and the port-only mellum2 (its
+    # per-layer attention plan in configs/layers.py)
+    assert len(archs) == 12 and "mellum2" in archs
     serve = (PORT / "launch" / "serve.py").read_text()
     assert '"demo-lm"' in serve and "def demo_lm_main" in serve
     assert (PORT / "csrc" / "attention.cu").is_file()

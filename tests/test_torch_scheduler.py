@@ -612,3 +612,56 @@ def test_one_call_spmm_sddmm_match_jax_and_warn(op, monkeypatch):
     assert d.choice == jd.choice == "row_ell" and d.op == jd.op == op
     assert set(d.probe_ms) == set(jd.probe_ms)
     np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=1e-5, atol=1e-5)
+
+
+def test_an_extrapolation_below_the_subgraphs_own_reading_is_measured_again(monkeypatch):
+    """Slope probing extrapolates (t_2x - t_1x) per row to the graph. A
+    stall in the 1x reading brings it up to the 2x reading, and the slope
+    then says the graph costs less than the 2x subgraph did: once that put
+    a plain composed pipeline in place of the hand kernels for a
+    sliding-window band. Such a candidate's two subgraphs are measured
+    once more and the slope taken from the second readings; a candidate
+    that reads so again keeps that slope, as before."""
+    from repro_torch.core import probe as probe_mod
+
+    csr = hub_skew(4096, 4, 0.1, 40, seed=0)
+    sage = AutoSage(cache=ScheduleCache(path=None), device="cpu", probe_iters=1,
+                    probe_cap_ms=25, probe_frac=0.125)
+    calls = {}
+
+    def reading(name, rows):
+        n = calls[name, rows] = calls.get((name, rows), 0) + 1
+        if name == "stalled":  # its first 1x reading stalls up to its 2x one
+            return 4.0 if (rows == 512 and n == 1) else 0.004 * rows
+        if name == "flat":  # fixed cost: every reading nearly alike
+            return 1.49 + (0.01 if rows > 512 else 0.0)
+        return 0.002 * rows
+
+    class Fake:
+        op = "spmm"
+
+        def __init__(self, name):
+            self.name, self.is_baseline = name, name == "base"
+
+        def full_name(self):
+            return self.name
+
+        def timed_prepare(self, sub):
+            return {"rows": sub.n_rows}
+
+        def build(self, aux, device):
+            return lambda: aux["rows"]
+
+    def timer(fn, device, iters=1, cap_ms=0.0, name="?"):
+        ms = reading(name, fn())
+        return probe_mod.ProbeResult(name, ms, [ms], 1, False)
+
+    monkeypatch.setattr(probe_mod, "time_callable", timer)
+    out = sage.probe_candidates(csr, Fake("base"), [Fake("stalled"), Fake("flat")],
+                                lambda sub: ())
+    # subgraphs of 512 and 1,024 rows; the graph has 4,096
+    assert out.probe_ms["baseline"] == pytest.approx(0.002 * 4096)
+    assert out.probe_ms["stalled"] == pytest.approx(0.004 * 4096)  # not 0.75
+    assert calls["stalled", 512] == calls["stalled", 1024] == 2
+    assert out.probe_ms["flat"] == pytest.approx(0.01 / 512 * 4096)
+    assert calls["flat", 512] == 2 and calls["base", 512] == 1
