@@ -585,8 +585,15 @@ FEATURES_TOTAL = "autosage_features_total"
 #   autosage_moe_rows_total                    token copies dispatched to
 #                                              the experts, remat
 #                                              recomputes included
+#   autosage_moe_grouped_total{pass=forward|backward}
+#                                              grouped expert products
+#                                              (models/moe.py _ragged_dot)
+#                                              run forward, remat
+#                                              recomputes included, and
+#                                              backward
 BAND_CSR_TOTAL = "autosage_band_csr_total"
 MOE_ROWS_TOTAL = "autosage_moe_rows_total"
+MOE_GROUPED_TOTAL = "autosage_moe_grouped_total"
 
 
 # -------------------------------------------------------------- serving

@@ -14,7 +14,10 @@ Two paths, selected by whether a mesh is given:
 
 JAX's ``jax.lax.ragged_dot`` becomes one ``torch.matmul`` per expert
 over its group of sorted token copies; rows past the last group come
-out as zeros, as ragged_dot leaves them.
+out as zeros, as ragged_dot leaves them. The backward is written out
+(``_GroupedProduct``) so that each group's gradients go into its rows of
+one ``dx`` and its slice of one ``dw``: per-group slices under autograd
+would each pad their gradient to the whole operand and sum the pads.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from typing import Dict, List
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import obs
@@ -56,15 +60,63 @@ def _route(t: torch.Tensor, router: torch.Tensor, top_k: int):
     return gates, ids
 
 
+def _groups(bounds: List[int]):
+    """(e, lo, hi) of each non-empty group of ``bounds``."""
+    return [(e, bounds[e], bounds[e + 1]) for e in range(len(bounds) - 1)
+            if bounds[e + 1] > bounds[e]]
+
+
+class _GroupedProduct(torch.autograd.Function):
+    """The grouped expert product: rows [bounds[e], bounds[e+1]) of x (M, D)
+    times w[e] (E, D, F) in the activations' dtype, rows past the last
+    group zero. The backward takes per group the two products autograd
+    would (g·w[e]ᵀ, x[lo:hi]ᵀ·g), each written into its rows of ``dx``
+    or its slice of ``dw`` (``dw`` in w's dtype); only the rows past the
+    last group and the slices of empty groups are zeroed."""
+
+    @staticmethod
+    def forward(ctx, x, w, bounds):
+        obs.REGISTRY.inc(obs.MOE_GROUPED_TOTAL, **{"pass": "forward"})
+        out = x.new_empty((x.shape[0], w.shape[-1]))
+        for e, lo, hi in _groups(bounds):
+            torch.matmul(x[lo:hi], w[e].to(x.dtype), out=out[lo:hi])
+        out[bounds[-1]:].zero_()
+        ctx.save_for_backward(x, w)
+        ctx.bounds = bounds
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        # unpacked before the span: under remat an unpack may recompute
+        x, w = ctx.saved_tensors
+        bounds = ctx.bounds
+        obs.REGISTRY.inc(obs.MOE_GROUPED_TOTAL, **{"pass": "backward"})
+        dx = dw = None
+        with obs.span("lm.moe_bwd", g.device):
+            if ctx.needs_input_grad[0]:
+                dx = x.new_empty(x.shape)
+                for e, lo, hi in _groups(bounds):
+                    torch.matmul(g[lo:hi], w[e].to(g.dtype).t(), out=dx[lo:hi])
+                dx[bounds[-1]:].zero_()
+            if ctx.needs_input_grad[1]:
+                dw = torch.empty_like(w)
+                for e in range(w.shape[0]):
+                    lo, hi = bounds[e], bounds[e + 1]
+                    if hi == lo:
+                        dw[e].zero_()
+                    elif x.dtype == dw.dtype:
+                        torch.matmul(x[lo:hi].t(), g[lo:hi], out=dw[e])
+                    else:
+                        dw[e].copy_(x[lo:hi].t() @ g[lo:hi])
+        return dx, dw, None
+
+
 def _ragged_dot(x: torch.Tensor, w: torch.Tensor, bounds: List[int]) -> torch.Tensor:
     """``jax.lax.ragged_dot``: rows [bounds[e], bounds[e+1]) of x times w[e],
-    one product per non-empty group, concatenated, then zero rows for
-    the rows past the last group (differentiable)."""
-    parts = [x[bounds[e]:bounds[e + 1]] @ w[e].to(x.dtype)
-             for e in range(w.shape[0]) if bounds[e + 1] > bounds[e]]
-    if bounds[-1] < x.shape[0]:
-        parts.append(x.new_zeros((x.shape[0] - bounds[-1], w.shape[-1])))
-    return torch.cat(parts)
+    one product per non-empty group, zero rows for the rows past the
+    last group; differentiable in x and w through ``_GroupedProduct``."""
+    return _GroupedProduct.apply(x, w, bounds)
 
 
 def _group_sizes(ids: torch.Tensor, n_groups: int, routed: int) -> List[int]:
