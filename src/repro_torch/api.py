@@ -24,8 +24,9 @@ Routing, per call:
   (decide + memoized runner), for inference.
 
 ``sage`` is anything exposing ``decide(csr, f, op)`` and
-``build_runner(csr, decision)``, e.g. `repro_torch.core.AutoSage`;
-attention goes to its pipeline-level ``decide_attention`` when it has one.
+``build_runner(csr, decision)``, e.g. `repro_torch.core.AutoSage` or
+`repro_torch.core.BatchScheduler`; every op goes through ``decide``,
+attention as its joint pipeline-level op "attention".
 """
 from __future__ import annotations
 

@@ -25,10 +25,12 @@ from repro_torch.core.features import (
 )
 from repro_torch.core.guardrail import GuardrailDecision, apply_guardrail
 from repro_torch.core.obs import REGISTRY, MetricsRegistry, ScopedCounter, span
-from repro_torch.core.pipeline import AttentionDecision
 from repro_torch.core.resilience import CircuitBreaker, FaultPolicy, ProbeTimeout
 from repro_torch.core.scheduler import AutoSage, Decision, ProbeOutcome
 from repro_torch.core.transfer import TransferPlan, best_plan, plan_transfer
+
+# a joint attention decision is a Decision of op "attention"
+AttentionDecision = Decision
 
 __all__ = [
     "AttentionDecision",

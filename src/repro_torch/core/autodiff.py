@@ -7,8 +7,10 @@ SDDMM on the forward pattern plus an SpMM on the transpose, whose degrees
 are the in-degrees), so each backward op gets its own decision: its own
 `InputFeatures`, its own cache key (op strings such as "spmm_bwd_b", with
 the cotangent's F) and the full estimate -> probe -> guardrail ->
-cache/replay path of `AutoSage.decide`. The op taxonomy lives in
-core/features.py, the runtime-valued SpMM family in core/registry.py.
+cache/replay path of `AutoSage.decide`. Every op, the forward's joint
+"attention" op included, is decided by the same call, ``sched.decide(csr,
+f, op)``. The op taxonomy lives in core/features.py, the runtime-valued
+SpMM family in core/registry.py.
 
 The transposed CSR comes from the memoized `CSR.transpose_with_perm()`,
 and `AutoSage.build_runner` memoizes the prepared layout per (graph, op,
@@ -39,20 +41,12 @@ from repro_torch.kernels import ref
 from repro_torch.sparse.csr import CSR
 
 
-def _decide(sched, csr: CSR, f: int, op: str):
-    """One scheduled decision; the pipeline-level attention decide when the
-    scheduler has one."""
-    if op == "attention" and hasattr(sched, "decide_attention"):
-        return sched.decide_attention(csr, f)
-    return sched.decide(csr, f, op)
-
-
 def _scheduled(sched, csr: CSR, f: int, op: str, *args):
     """decide + (memoized) prepare + run one scheduled op."""
     kind = "bwd" if "_bwd" in op else "fwd"
     with obs.span(f"{kind}.{op}", op=op):
         try:
-            d = _decide(sched, csr, int(f), op)
+            d = sched.decide(csr, int(f), op)
             runner = sched.build_runner(csr, d)
         except Exception as exc:
             # a step's op must not die on a scheduling fault: the
@@ -221,6 +215,6 @@ class _Attention(torch.autograd.Function):
 
 
 def attention(csr: CSR, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, sched):
-    """CSR attention (SDDMM -> row softmax -> SpMM) through the
-    pipeline-level scheduler, differentiable."""
+    """CSR attention (SDDMM -> row softmax -> SpMM), its forward decided
+    at pipeline granularity as the "attention" op, differentiable."""
     return _Attention.apply(q, k, v, sched, csr.structural())

@@ -341,11 +341,7 @@ class BatchScheduler:
     def _open_bucket(
         self, bucket: ScheduleBucket, key: str, csr: CSR, feat: InputFeatures
     ) -> _BucketState:
-        hw, device = self.sage.hw, self.sage.device
-        cands = registry.candidates(feat, hw, device)
-        base = registry.baseline(feat, hw, device)
-        by_name = {v.full_name(): v for v in cands}
-        by_name["baseline"] = base
+        cands, base, by_name = registry.pool(feat, self.sage.hw, self.sage.device)
 
         # replay / warm start: a pinned bucket decision ends the story; in
         # replay-only mode a miss raises ReplayMiss, and so does a pinned
@@ -408,47 +404,43 @@ class BatchScheduler:
 
         # transfer tier, between warm hit and cold probe: no local entry,
         # but a peer device class may have probed this regime
-        if transfer_mod.enabled() and not self.cache.replay_only:
-            plan = transfer_mod.best_plan(
-                self.cache.peer_entries(key), feat, hw, by_name, base, self.sage.alpha,
-                excluded=self.sage.breaker.excluded_names(),
+        plan = self.sage.transfer_plan(key, feat, short, by_name, base, allow_transfer=True)
+        if plan is not None:
+            verdict = "confirmed" if plan.confident else "pending"
+            d = Decision(
+                op=feat.op, choice=plan.choice, variant=by_name[plan.choice],
+                guardrail=plan.guardrail, from_cache=False, probe_ms={},
+                probe_overhead_ms=0.0, probe_iter_ms=0.0, estimates_ms=estimates,
+                transfer=plan.provenance(verdict),
             )
-            if plan is not None:
-                verdict = "confirmed" if plan.confident else "pending"
-                d = Decision(
-                    op=feat.op, choice=plan.choice, variant=by_name[plan.choice],
-                    guardrail=plan.guardrail, from_cache=False, probe_ms={},
-                    probe_overhead_ms=0.0, probe_iter_ms=0.0, estimates_ms=estimates,
-                    transfer=plan.provenance(verdict),
-                )
-                st.decision = d
-                st.transferred = True
-                st.transfer_verdict = verdict
-                st.transfer_choice = plan.choice
-                st.transfer_info = d.transfer
-                # the padding regime the transfer was accepted under: the
-                # waste-drift detector fires off it as off a probe's
-                st.waste_at_probe = feat.padding_waste
-                self._transfers.inc(op=feat.op)
-                if plan.confident:
-                    st.probed = True  # final: the confirm probe is waived
-                    self._transfers_confirmed.inc(verdict="confirmed")
-                    self._transfer_probe_free.inc(op=feat.op)
-                else:
-                    obs.REGISTRY.inc("autosage_transfer_verdict_total", verdict="pending")
-                self._emit({
-                    "event": "transfer",
-                    "bucket": bucket.sig(),
-                    "op": feat.op,
-                    "f": feat.f,
-                    "choice": plan.choice,
-                    "source_device": plan.source_device,
-                    "verdict": verdict,
-                    "rank_agreement": plan.rank_agreement,
-                    "confident": plan.confident,
-                    "peer_choice": plan.peer_choice,
-                })
-                telemetry.emit_decide_event(d, device, feat, kind="transfer")
+            st.decision = d
+            st.transferred = True
+            st.transfer_verdict = verdict
+            st.transfer_choice = plan.choice
+            st.transfer_info = d.transfer
+            # the padding regime the transfer was accepted under: the
+            # waste-drift detector fires off it as off a probe's
+            st.waste_at_probe = feat.padding_waste
+            self._transfers.inc(op=feat.op)
+            if plan.confident:
+                st.probed = True  # final: the confirm probe is waived
+                self._transfers_confirmed.inc(verdict="confirmed")
+                self._transfer_probe_free.inc(op=feat.op)
+            else:
+                obs.REGISTRY.inc("autosage_transfer_verdict_total", verdict="pending")
+            self._emit({
+                "event": "transfer",
+                "bucket": bucket.sig(),
+                "op": feat.op,
+                "f": feat.f,
+                "choice": plan.choice,
+                "source_device": plan.source_device,
+                "verdict": verdict,
+                "rank_agreement": plan.rank_agreement,
+                "confident": plan.confident,
+                "peer_choice": plan.peer_choice,
+            })
+            telemetry.emit_decide_event(d, self.sage.device, feat, kind="transfer")
         return st
 
     # ----------------------------------------------------------- probes
@@ -492,11 +484,8 @@ class BatchScheduler:
         old_choice = st.decision.choice if st.decision is not None else None
         if was_drift and st.last_csr is not None:
             st.rep_csr, st.rep_feat = st.last_csr, st.last_feat
-            hw, device = self.sage.hw, self.sage.device
-            cands = registry.candidates(st.rep_feat, hw, device)
-            st.base = registry.baseline(st.rep_feat, hw, device)
-            st.by_name = {v.full_name(): v for v in cands}
-            st.by_name["baseline"] = st.base
+            cands, st.base, st.by_name = registry.pool(st.rep_feat, self.sage.hw,
+                                                       self.sage.device)
             st.estimates_ms, short = self.sage.shortlist(st.rep_feat, cands)
             st.has_challengers = bool(short)
         if was_drift:
@@ -520,12 +509,8 @@ class BatchScheduler:
         with reprobe_span, flush_guard, self.cache:
             # allow_transfer=False: this IS the measurement that confirms
             # (or flips) a transferred choice and re-pins drifted buckets
-            if st.rep_feat.op == "attention":
-                d = self.sage.decide_attention(st.rep_csr, st.rep_feat.f, seed=seed,
-                                               allow_transfer=False)
-            else:
-                d = self.sage.decide(st.rep_csr, st.rep_feat.f, st.rep_feat.op, seed=seed,
-                                     allow_transfer=False)
+            d = self.sage.decide(st.rep_csr, st.rep_feat.f, st.rep_feat.op, seed=seed,
+                                 allow_transfer=False)
             if was_pending_transfer:
                 st.transfer_verdict = (
                     "confirmed" if d.choice == st.transfer_choice else "flipped")

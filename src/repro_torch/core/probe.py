@@ -6,8 +6,11 @@ carrying their full adjacency, so per-row work distribution is
 preserved. Each candidate runs once to warm up (kernel build, caches),
 then is timed for `iters` iterations under a wall-time cap; the median
 is reported, as in the paper. On a CUDA device each iteration is timed
-with CUDA events around the call and a synchronize; on the CPU with
-`time.perf_counter`.
+with CUDA events around the call and a synchronize, the call queued
+behind a short spin of the device (`SPIN_CYCLES`) so that the events
+time the device's work and not the host's launching of it; on the CPU
+with `time.perf_counter`. `default_probe_args` makes the random operands the
+probes run on, shaped for each op.
 """
 from __future__ import annotations
 
@@ -21,12 +24,19 @@ import numpy as np
 import torch
 
 from repro_torch.core import faultinject
+from repro_torch.core.features import op_dynamic_vals, op_kind
 from repro_torch.sparse.csr import CSR
 
 DEFAULT_FRAC = float(os.environ.get("AUTOSAGE_PROBE_FRAC", "0.02"))
 DEFAULT_MIN_ROWS = int(os.environ.get("AUTOSAGE_PROBE_MIN_ROWS", "512"))
 DEFAULT_ITERS = int(os.environ.get("AUTOSAGE_PROBE_ITERS", "5"))
 DEFAULT_CAP_MS = float(os.environ.get("AUTOSAGE_PROBE_CAP_MS", "1000"))
+# ~2 ms of an H100's clock: a candidate's launches are queued while the
+# device spins, so a call of many small launches is not read at the pace
+# of a host that shares its cores (on one graph that pace swung the
+# ragged attention kernel's extrapolation to the full graph from 8 to
+# 29 ms between probes, and with it the pick)
+SPIN_CYCLES = 4_000_000
 
 
 def induced_subgraph(
@@ -55,6 +65,7 @@ def _timed_ms(fn: Callable[[], torch.Tensor], device: torch.device) -> float:
     if device.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -92,3 +103,33 @@ def time_callable(
         iters_done=len(times),
         capped=capped,
     )
+
+
+def default_probe_args(
+    op: str, f: int, device: torch.device, seed: int = 0
+) -> Callable[[CSR], tuple]:
+    """Random dense operands of width f on ``device``, per subgraph,
+    shaped for ``op``'s compute kind: (B,) for SpMM, (vals, B) for
+    runtime-valued SpMM (a random nnz-vector standing in for the per-edge
+    cotangent), (X, Y) for SDDMM, (q, k, v) for attention. Grad ops get
+    cotangent-shaped operands: "spmm_bwd_b" runs on the transpose, so its
+    B is (n_cols of the transpose, F_grad)."""
+    kind = op_kind(op)
+    dynamic = op_dynamic_vals(op)
+
+    def fn(sub: CSR) -> tuple:
+        # per-subgraph stream: the 1x and 2x probe subgraphs must not get
+        # byte-identical operands (a warm cache would bias the slope)
+        rng = np.random.default_rng((seed, sub.n_rows, sub.nnz))
+        if kind == "spmm":
+            shapes = [(sub.nnz,), (sub.n_cols, f)] if dynamic else [(sub.n_cols, f)]
+        elif kind == "sddmm":
+            shapes = [(sub.n_rows, f), (sub.n_cols, f)]
+        else:
+            shapes = [(sub.n_rows, f), (sub.n_cols, f), (sub.n_cols, f)]
+        return tuple(
+            torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+            for shape in shapes
+        )
+
+    return fn

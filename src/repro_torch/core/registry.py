@@ -21,7 +21,7 @@ their plain versions. Backward ops draw the pool of their compute kind
 "attention_bwd_e" SDDMM candidates, "attention_bwd_q" the runtime-valued
 SpMM family, whose runners take (vals, b). The legacy per-op
 "csr_attention" op draws the attention pool, as in the JAX package: its
-keys predate the pipeline scheduler, so estimate.py costs none of its
+keys predate the joint "attention" op, so estimate.py costs none of its
 candidates and `AutoSage.decide` serves the baseline through the
 resilience rescue, while a cached legacy entry that pins a fused kernel
 replays it.
@@ -625,7 +625,7 @@ def _cuda_sddmm_variants(feat: InputFeatures) -> List[Variant]:
 # ------------------------------------------- pipeline-level attention
 # Attention candidates are whole pipelines: each composed
 # {sddmm layout x spmm layout} pair, plus the fused hand-written kernels.
-# The pipeline scheduler (core/pipeline.py) probes these end to end; a
+# The joint "attention" decide (core/pipeline.py) probes these end to end; a
 # per-op decide can never justify a fused kernel because its benefit (no
 # logits/probs round-trip through device memory) lies *between* ops.
 def _structural(csr: CSR) -> CSR:
@@ -759,8 +759,26 @@ def candidates(
     return [v for v in vs if v.applicable(feat, hw)]
 
 
-def baseline(feat: InputFeatures, hw: HardwareSpec, device: torch.device) -> Variant:
-    for v in candidates(feat, hw, device, include_kernels=False):
+def _first_baseline(vs: List[Variant], op: str) -> Variant:
+    for v in vs:
         if v.is_baseline:
             return v
-    raise RuntimeError(f"no baseline for op {feat.op}")
+    raise RuntimeError(f"no baseline for op {op}")
+
+
+def baseline(feat: InputFeatures, hw: HardwareSpec, device: torch.device) -> Variant:
+    return _first_baseline(candidates(feat, hw, device, include_kernels=False), feat.op)
+
+
+def pool(
+    feat: InputFeatures, hw: HardwareSpec, device: torch.device
+) -> Tuple[List[Variant], Variant, Dict[str, Variant]]:
+    """A decide's pool from one enumeration: (candidates, the guardrail
+    baseline, full name -> variant, where "baseline" names the baseline
+    too). The baseline variant is always applicable and precedes the
+    kernel families, so it is the variant `baseline` returns."""
+    cands = candidates(feat, hw, device)
+    base = _first_baseline(cands, feat.op)
+    by_name = {v.full_name(): v for v in cands}
+    by_name["baseline"] = base
+    return cands, base, by_name

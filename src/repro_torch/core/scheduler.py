@@ -1,11 +1,13 @@
 """AutoSAGE scheduler: estimate -> micro-probe -> guardrail -> cache.
 
-Port of repro/core/scheduler.py for SpMM, SDDMM and (through
-core/pipeline.py) CSR attention: the paper's §4.2 decision procedure
+Port of repro/core/scheduler.py: the paper's §4.2 decision procedure
 (`autosage_decide`) with the persistent cache fast path, slope probing
 on induced subgraphs with identical sampling per candidate, the top-k
 shortlist by roofline estimate and the non-regression guardrail
-(Prop. 1).
+(Prop. 1). It is the one decision procedure of the port, for every op:
+SpMM, SDDMM, their backward ops and CSR attention, whose joint
+"attention" op picks among whole pipelines (core/pipeline.py says why,
+and times the chosen one's stages when `decide_attention` asks).
 
 On an exact-key miss, a peer device class's probed entry for the same
 graph (core/transfer.py) can stand in for the probe: a confident
@@ -34,12 +36,11 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
 
-import numpy as np
 import torch
 
 from repro_torch.core import estimate as est
-from repro_torch.core import features as features_mod
 from repro_torch.core import obs
+from repro_torch.core import pipeline
 from repro_torch.core import probe as probe_mod
 from repro_torch.core import registry
 from repro_torch.core import resilience
@@ -70,36 +71,6 @@ class ProbeOutcome:
     iter_ms: float  # steady-state probe iterations only
 
 
-def default_probe_args(
-    op: str, f: int, device: torch.device, seed: int = 0
-) -> Callable[[CSR], tuple]:
-    """Random dense operands of width f on ``device``, per subgraph,
-    shaped for ``op``'s compute kind: (B,) for SpMM, (vals, B) for
-    runtime-valued SpMM (a random nnz-vector standing in for the per-edge
-    cotangent), (X, Y) for SDDMM, (q, k, v) for attention. Grad ops get
-    cotangent-shaped operands: "spmm_bwd_b" runs on the transpose, so its
-    B is (n_cols of the transpose, F_grad)."""
-    kind = features_mod.op_kind(op)
-    dynamic = features_mod.op_dynamic_vals(op)
-
-    def fn(sub: CSR) -> tuple:
-        # per-subgraph stream: the 1x and 2x probe subgraphs must not get
-        # byte-identical operands (a warm cache would bias the slope)
-        rng = np.random.default_rng((seed, sub.n_rows, sub.nnz))
-        if kind == "spmm":
-            shapes = [(sub.nnz,), (sub.n_cols, f)] if dynamic else [(sub.n_cols, f)]
-        elif kind == "sddmm":
-            shapes = [(sub.n_rows, f), (sub.n_cols, f)]
-        else:
-            shapes = [(sub.n_rows, f), (sub.n_cols, f), (sub.n_cols, f)]
-        return tuple(
-            torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
-            for shape in shapes
-        )
-
-    return fn
-
-
 @dataclasses.dataclass
 class Decision:
     op: str
@@ -115,6 +86,9 @@ class Decision:
     # was transferred from a peer device's probed ranking — source_device,
     # verdict (confirmed/pending/flipped), rank_agreement, predicted_ms
     transfer: Optional[Dict[str, Any]] = None
+    # per-stage ms of a joint attention decision's choice on the probe
+    # subgraph (pipeline.probe_stage_breakdown); empty unless requested
+    stage_ms: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     def to_cache_entry(self) -> Dict[str, Any]:
         entry: Dict[str, Any] = {
@@ -124,6 +98,10 @@ class Decision:
         }
         if self.transfer is not None:
             entry["transfer"] = dict(self.transfer)
+        if self.op == "attention":
+            entry["op"] = "attention"
+        if self.stage_ms:
+            entry["stage_ms"] = dict(self.stage_ms)
         return entry
 
 
@@ -335,24 +313,27 @@ class AutoSage:
         csr: CSR,
         f: int,
         op: str,
-        probe_args_fn: Optional[Callable[[CSR], tuple]] = None,
         seed: int = 0,
         allow_transfer: bool = True,
+        stage_breakdown: bool = False,
     ) -> Decision:
-        """The paper's `autosage_decide(features, F, op)`.
+        """The paper's `autosage_decide(features, F, op)`; for
+        op="attention" F is the head dimension.
 
         ``allow_transfer=False`` forces a real local measurement on an
         exact-key miss (the batch scheduler's confirm and drift re-probes
-        use it). With resilience on, a fault inside the decision
-        machinery yields an uncached baseline decision (tier "fault");
-        `ReplayMiss`, sticky CUDA errors and, on a card, a kernel's real
-        fault (`resilience.rescuable`) always raise."""
+        use it). ``stage_breakdown`` (attention) times the chosen
+        pipeline's stages after a probe and pins them with the entry.
+        With resilience on, a fault inside the decision machinery yields
+        an uncached baseline decision (tier "fault"); `ReplayMiss`,
+        sticky CUDA errors and, on a card, a kernel's real fault
+        (`resilience.rescuable`) always raise."""
         t0 = time.perf_counter()
         with obs.span("decide", op=op, f=f, scheduler="exact"):
             try:
                 decision, tier = self._decide_impl(
-                    csr, f, op, probe_args_fn=probe_args_fn, seed=seed,
-                    allow_transfer=allow_transfer,
+                    csr, f, op, seed=seed, allow_transfer=allow_transfer,
+                    stage_breakdown=stage_breakdown,
                 )
             except ReplayMiss:
                 raise  # the replay contract stays loud — never rescued
@@ -370,7 +351,9 @@ class AutoSage:
 
     def _rescue_decision(self, csr: CSR, f: int, op: str) -> Decision:
         """Provisional baseline decision for the decide-path rescue: not
-        cached (the fault may be transient), never a poisoned pin."""
+        cached (the fault may be transient), never a poisoned pin. Only
+        the library pool is enumerated: a fault in a kernel variant's
+        gate must not reach the rescue."""
         feat = InputFeatures.from_csr(csr, f, op)
         base = registry.baseline(feat, self.hw, self.device)
         return Decision(
@@ -430,20 +413,16 @@ class AutoSage:
         csr: CSR,
         f: int,
         op: str,
-        probe_args_fn: Optional[Callable[[CSR], tuple]] = None,
         seed: int = 0,
         allow_transfer: bool = True,
+        stage_breakdown: bool = False,
     ) -> tuple:
         """decide() body; returns (Decision, tier) with tier one of
         "cache" | "transfer" | "probe"."""
         with obs.span("features", op=op):
             feat = InputFeatures.from_csr(csr, f, op)
         key = ScheduleCache.key(device_sig(self.device), feat.graph_sig, f, op, self.alpha)
-
-        cands = registry.candidates(feat, self.hw, self.device)
-        base = registry.baseline(feat, self.hw, self.device)
-        by_name = {v.full_name(): v for v in cands}
-        by_name["baseline"] = base
+        cands, base, by_name = registry.pool(feat, self.hw, self.device)
 
         cached = self.cache.get(key) if self.cache is not None else None
         cached = self.usable_pin(key, cached, by_name)
@@ -453,8 +432,9 @@ class AutoSage:
                 op=op, choice=choice, variant=by_name[choice], guardrail=None,
                 from_cache=True, probe_ms={}, probe_overhead_ms=0.0,
                 probe_iter_ms=0.0, estimates_ms={},
+                stage_ms=dict(cached.get("stage_ms", {})),
             )
-            telemetry.emit_decide_event(decision, self.device, feat)
+            telemetry.emit_decision(decision, self.device, feat)
             return decision, "cache"
 
         if resilience.enabled():
@@ -472,14 +452,13 @@ class AutoSage:
             )
             self.pin_entry(key, entry_with_stats(decision, feat, base.full_name()), op)
             obs.REGISTRY.inc("autosage_transfer_verdict_total", verdict="confirmed")
-            telemetry.emit_decide_event(decision, self.device, feat, kind="transfer")
+            telemetry.emit_decision(decision, self.device, feat, kind="transfer")
             return decision, "transfer"
 
         if short:
             with obs.span("probe", op=op, n_candidates=len(short) + 1):
                 outcome = self.probe_candidates(
-                    csr, base, short,
-                    probe_args_fn or default_probe_args(op, f, self.device, seed),
+                    csr, base, short, probe_mod.default_probe_args(op, f, self.device, seed),
                     seed=seed,
                 )
             obs.REGISTRY.inc("autosage_probe_passes_total", op=op)
@@ -495,11 +474,13 @@ class AutoSage:
                 self.alpha,
             )
         variant = by_name[gr.choice] if gr.accepted else base
+        stage_ms = (pipeline.probe_stage_breakdown(self, csr, f, variant, seed=seed)
+                    if stage_breakdown else {})
         decision = Decision(
             op=op, choice=gr.choice, variant=variant, guardrail=gr,
             from_cache=False, probe_ms=outcome.probe_ms,
             probe_overhead_ms=outcome.overhead_ms,
-            probe_iter_ms=outcome.iter_ms, estimates_ms=estimates,
+            probe_iter_ms=outcome.iter_ms, estimates_ms=estimates, stage_ms=stage_ms,
         )
         if plan is not None:
             # the probe doubles as the transfer's confirm measurement
@@ -508,7 +489,7 @@ class AutoSage:
             obs.REGISTRY.inc("autosage_transfer_verdict_total", verdict=verdict)
         if self.cache is not None:
             self.pin_entry(key, entry_with_stats(decision, feat, base.full_name()), op)
-        telemetry.emit_decide_event(decision, self.device, feat)
+        telemetry.emit_decision(decision, self.device, feat)
         return decision, "probe"
 
     # ------------------------------------------------------------------
@@ -573,21 +554,18 @@ class AutoSage:
 
     # ---- pipeline-level CSR attention (core/pipeline.py) -------------
     def decide_attention(self, csr: CSR, d: int, seed: int = 0,
-                         stage_breakdown: bool = False, allow_transfer: bool = True):
-        """Joint decision over the composed {sddmm x softmax x spmm}
-        pipelines and the fused CUDA kernels; cached under op="attention"."""
-        from repro_torch.core import pipeline
-
-        return pipeline.decide_attention(
-            self, csr, d, seed=seed, stage_breakdown=stage_breakdown,
-            allow_transfer=allow_transfer,
-        )
+                         stage_breakdown: bool = False,
+                         allow_transfer: bool = True) -> Decision:
+        """`decide(csr, d, "attention")`: the joint decision over the
+        composed {sddmm x softmax x spmm} pipelines and the fused CUDA
+        kernels at head dimension ``d``."""
+        return self.decide(csr, d, "attention", seed=seed, allow_transfer=allow_transfer,
+                           stage_breakdown=stage_breakdown)
 
     def attention(self, csr: CSR, q, k, v, seed: int = 0):
         """Decide + prepare + run on the full graph; returns (out,
         decision). `repro_torch.api.attention(csr, q, k, v, sage=...)` is
         the entry point; this keeps `repro`'s method for callers that want
         the decision too."""
-        from repro_torch.core import pipeline
-
-        return pipeline.attention_forward(self, csr, q, k, v, seed=seed)
+        d = self.decide(csr, int(q.shape[1]), "attention", seed=seed)
+        return self.build_runner(csr, d)(q, k, v), d

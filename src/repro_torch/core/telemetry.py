@@ -156,6 +156,17 @@ def emit_decide_event(
     return path
 
 
+def emit_decision(decision, device: torch.device, feat, kind: str = "decide") -> None:
+    """A decide's record, on the stream of its op: a joint attention
+    decision goes to attention_decisions.jsonl (after a decide event of
+    kind "transfer" when it was transferred), every other op's to
+    decide_events.jsonl."""
+    if decision.op != "attention" or kind == "transfer":
+        emit_decide_event(decision, device, feat, kind=kind)
+    if decision.op == "attention":
+        emit_attention_decision(decision, device)
+
+
 def emit_attention_decision(decision, device: torch.device) -> Optional[str]:
     """Per-stage breakdown stream for pipeline decisions
     (attention_decisions.jsonl, §8.7 analysis).
@@ -173,7 +184,7 @@ def emit_attention_decision(decision, device: torch.device) -> Optional[str]:
             "choice": decision.choice,
             "from_cache": decision.from_cache,
             "probe_ms": decision.probe_ms,
-            "stage_ms": getattr(decision, "stage_ms", {}),
+            "stage_ms": decision.stage_ms,
             "estimates_ms": decision.estimates_ms,
             "probe_overhead_ms": decision.probe_overhead_ms,
         },

@@ -32,12 +32,13 @@ block off the output.
 """
 from __future__ import annotations
 
-import ctypes
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import F, I, LL, P
 from repro_torch.kernels.ref import CHUNK_ELEMS, chunk_ranges
 
 LAUNCHES: Dict[str, int] = {
@@ -55,32 +56,18 @@ MAX_D = SMEM_LIMIT // (2 * RB * 4)
 CHUNK_SLOTS = 256
 STATE_FLOATS = 4  # per row and chunk: m, l, a live flag, padding
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_LL = ctypes.c_longlong
-_F = ctypes.c_float
-
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
 
 
-_LIB: Optional[ctypes.CDLL] = None
-
-
-def _lib() -> ctypes.CDLL:
-    """csrc/attention.cu, built at first use, with its C signature declared."""
-    global _LIB
-    if _LIB is None:
-        lib = build.load("attention")
-        lib.autosage_attention.argtypes = [
-            _P, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P,
-            _LL, _LL, _I, _LL, _LL, _I, _LL, _F, _P,
-        ]
-        lib.autosage_attention.restype = _I
-        _LIB = lib
-    return _LIB
+# csrc/attention.cu, built at first use, with its C signature declared
+_lib = functools.partial(build.load, "attention", {
+    "autosage_attention": [
+        P, P, P, LL, P, P, P, P, P, P, P, P, LL, LL, I, LL, LL, I, LL, F, P,
+    ],
+})
 
 
 def _scale(q: torch.Tensor, scale: Optional[float]) -> float:

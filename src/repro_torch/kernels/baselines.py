@@ -157,7 +157,7 @@ def row_softmax(aux: Dict, val: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------- composed attention pipelines
-# The pipeline scheduler (core/pipeline.py) selects among these whole
+# The joint "attention" decide (core/pipeline.py) selects among these whole
 # SDDMM -> row-softmax -> SpMM compositions; each stays in one sparse
 # layout per stage, with explicit layout conversion for mixed pairs.
 def prepare_edge_slots(csr: CSR) -> Dict[str, np.ndarray]:

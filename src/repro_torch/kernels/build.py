@@ -18,7 +18,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional, Sequence
 
 import torch
 
@@ -28,6 +28,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+
+# argument types of the launchers' C signatures
+P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -111,10 +114,17 @@ def stream_of(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built if needed."""
+def load(name: str, signatures: Optional[Dict[str, Sequence]] = None) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built if needed. Its
+    first load declares every launcher in ``signatures`` (C name ->
+    argument types; each returns its cudaError as an int)."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = _libs[name] = ctypes.CDLL(str(build([name])[name]))
+            lib = ctypes.CDLL(str(build([name])[name]))
+            for fn, argtypes in (signatures or {}).items():
+                getattr(lib, fn).argtypes = list(argtypes)
+                getattr(lib, fn).restype = I
+            _libs[name] = lib
         return lib
+

@@ -33,12 +33,13 @@ their ends read as zero, and any F works (no padding to 32).
 """
 from __future__ import annotations
 
-import ctypes
-from typing import Dict, Optional
+import functools
+from typing import Dict
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import I, LL, P
 from repro_torch.kernels.ref import CHUNK_ELEMS, chunk_ranges
 
 LAUNCHES: Dict[str, int] = {
@@ -49,38 +50,18 @@ LAUNCHES: Dict[str, int] = {
 
 BLOCKINGS = ((8, 8), (16, 8))  # (rb, bc) the kernels are built for
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_LL = ctypes.c_longlong
-
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
 
 
-_LIB: Optional[ctypes.CDLL] = None
-
-
-def _lib() -> ctypes.CDLL:
-    """csrc/sddmm.cu, built at first use, with its C signatures declared."""
-    global _LIB
-    if _LIB is None:
-        lib = build.load("sddmm")
-        lib.autosage_sddmm_dense.argtypes = [
-            _P, _P, _P, _P, _P, _LL, _I, _I, _I, _LL, _LL, _I, _P,
-        ]
-        lib.autosage_sddmm_ragged.argtypes = [
-            _P, _P, _P, _P, _P, _P, _LL, _I, _I, _LL, _LL, _I, _P,
-        ]
-        lib.autosage_sddmm_merge.argtypes = [
-            _P, _P, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _I, _I, _LL, _LL, _I, _P,
-        ]
-        for fn in (lib.autosage_sddmm_dense, lib.autosage_sddmm_ragged,
-                   lib.autosage_sddmm_merge):
-            fn.restype = _I
-        _LIB = lib
-    return _LIB
+# csrc/sddmm.cu, built at first use, with its C signatures declared
+_lib = functools.partial(build.load, "sddmm", {
+    "autosage_sddmm_dense": [P, P, P, P, P, LL, I, I, I, LL, LL, I, P],
+    "autosage_sddmm_ragged": [P, P, P, P, P, P, LL, I, I, LL, LL, I, P],
+    "autosage_sddmm_merge": [P, P, P, P, P, P, P, LL, I, LL, I, I, I, LL, LL, I, P],
+})
 
 
 def n_bisect(n_row_blocks: int) -> int:

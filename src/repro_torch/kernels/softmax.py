@@ -23,21 +23,18 @@ CUDA tensors it launches the kernel on the current stream or raises.
 """
 from __future__ import annotations
 
-import ctypes
-from typing import Dict, Optional
+import functools
+from typing import Dict
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import I, LL, P
 from repro_torch.kernels.ref import CHUNK_ELEMS, chunk_ranges
 
 LAUNCHES: Dict[str, int] = {"row_softmax_block_ell": 0}
 
 BLOCKINGS = ((8, 8), (16, 8), (8, 16))  # (rb, bc) the registry offers
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_LL = ctypes.c_longlong
 
 
 def reset_launches() -> None:
@@ -45,18 +42,10 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-_LIB: Optional[ctypes.CDLL] = None
-
-
-def _lib() -> ctypes.CDLL:
-    """csrc/softmax.cu, built at first use, with its C signature declared."""
-    global _LIB
-    if _LIB is None:
-        lib = build.load("softmax")
-        lib.autosage_row_softmax.argtypes = [_P, _P, _P, _LL, _LL, _I, _I, _P]
-        lib.autosage_row_softmax.restype = _I
-        _LIB = lib
-    return _LIB
+# csrc/softmax.cu, built at first use, with its C signature declared
+_lib = functools.partial(build.load, "softmax", {
+    "autosage_row_softmax": [P, P, P, LL, LL, I, I, P],
+})
 
 
 def row_softmax_block_ell_plain(

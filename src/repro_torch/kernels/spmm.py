@@ -29,12 +29,13 @@ CSR product's value, as ``ref.spmm_ref`` does on the CSR.
 """
 from __future__ import annotations
 
-import ctypes
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.build import I, LL, P
 
 LAUNCHES: Dict[str, int] = {
     "spmm_block_ell": 0,
@@ -51,10 +52,6 @@ F_CHUNK = 128
 # few waves of equal, nnz-balanced runs; the carry buffer holds one
 # rb x F panel per run
 MERGE_MAX_RUNS = 8192
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_LL = ctypes.c_longlong
 
 
 def reset_launches() -> None:
@@ -111,25 +108,13 @@ def _check_aligned(name: str, vals: torch.Tensor) -> None:
         raise ValueError(f"{name}: the value tiles must be 16-byte aligned")
 
 
-_LIB: Optional[ctypes.CDLL] = None
-
-
-def _lib() -> ctypes.CDLL:
-    """csrc/spmm.cu, built at first use, with its C signatures declared."""
-    global _LIB
-    if _LIB is None:
-        lib = build.load("spmm")
-        lib.autosage_spmm_rows.argtypes = [
-            _P, _P, _I, _P, _P, _P, _P, _LL, _I, _I, _LL, _I, _LL, _I, _I, _P,
-        ]
-        lib.autosage_spmm_rows.restype = _I
-        lib.autosage_spmm_merge.argtypes = [
-            _P, _P, _P, _P, _P, _I, _I, _I, _LL, _P, _P, _P, _I, _I, _LL, _I,
-            _LL, _I, _I, _P,
-        ]
-        lib.autosage_spmm_merge.restype = _I
-        _LIB = lib
-    return _LIB
+# csrc/spmm.cu, built at first use, with its C signatures declared
+_lib = functools.partial(build.load, "spmm", {
+    "autosage_spmm_rows": [P, P, I, P, P, P, P, LL, I, I, LL, I, LL, I, I, P],
+    "autosage_spmm_merge": [
+        P, P, P, P, P, I, I, I, LL, P, P, P, I, I, LL, I, LL, I, I, P,
+    ],
+})
 
 
 # ------------------------------------------------------------- ragged

@@ -304,7 +304,6 @@ def csr_to_block_ell(
     _check_int32("dense slot grid (n_row_blocks * width)", n_row_blocks * width)
 
     # slot index of each unique pair within its row-block
-    order = np.argsort(uniq, kind="stable")  # uniq already sorted; identity
     slot_of_uniq = np.zeros(uniq.shape[0], np.int64)
     # running count per row block (uniq sorted by key => grouped by blk_row)
     if uniq.size:
@@ -321,7 +320,6 @@ def csr_to_block_ell(
             edge_val,
         )
 
-    del order
     return BlockELL(
         colblk=colblk,
         vals=vals,

@@ -11,10 +11,13 @@ softmax against the plain version's two-pass one). Dense-W equals ragged
 bit for bit, and merge-path and the attention kernels are bit-equal from
 launch to launch. The three SDDMM kernels give equal live tiles bit for
 bit, and all-zero (+0.0) padded, dummy and tail tiles."""
+import time
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import probe as probe_mod
 from repro_torch.kernels import attention as ka
 from repro_torch.kernels import sddmm as ksd
 from repro_torch.kernels import spmm as ks
@@ -711,3 +714,18 @@ def test_transfer_from_a_cpu_donor_to_the_card(cuda, tmp_path, monkeypatch):
         assert obs.REGISTRY.total("autosage_probe_passes_total", op="spmm") == passes0
     b = _b(csr, 64, cuda)
     _close(sage.build_runner(csr, d)(b), _ref_spmm(csr, b))
+
+
+def test_probe_times_the_device_not_the_hosts_launching(cuda):
+    """A call that keeps the host busy for 0.5 ms before one small launch
+    reads about the launch alone: the probe queues it behind a spin of
+    the device, so the events do not wait on the host."""
+    x = torch.zeros(1024, device=cuda)
+
+    def call():
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 5e-4:
+            pass
+        return x.add_(1.0)
+
+    assert probe_mod.time_callable(call, cuda, iters=5).median_ms < 0.25

@@ -106,14 +106,14 @@ def test_warm_attention_step_builds_nothing(monkeypatch):
     sage = AutoSage(cache=ScheduleCache(path=None), device="cpu", probe_iters=1,
                     probe_cap_ms=50, probe_frac=0.3)
     picks = []
-    decide = autodiff._decide
+    decide = sage.decide
 
-    def spy(sched, graph, f, op):
-        d = decide(sched, graph, f, op)
+    def spy(graph, f, op, **kw):
+        d = decide(graph, f, op, **kw)
         picks[-1][op] = d.choice
         return d
 
-    monkeypatch.setattr(autodiff, "_decide", spy)
+    monkeypatch.setattr(sage, "decide", spy)
     rng = np.random.default_rng(6)
     q, k, v = (torch.from_numpy(rng.standard_normal((csr.n_rows, 16)).astype(np.float32))
                .requires_grad_() for _ in range(3))

@@ -99,3 +99,31 @@ def test_every_slice_module_is_checked():
     assert (PORT / "csrc" / "attention.cu").is_file()
     assert (PORT / "csrc" / "sddmm.cu").is_file()
     assert (PORT / "csrc" / "softmax.cu").is_file()
+
+
+def _imported(node) -> set:
+    """Dotted names an import statement names, its modules and their
+    members."""
+    if isinstance(node, ast.Import):
+        return {a.name for a in node.names}
+    return {node.module or ""} | {f"{node.module}.{a.name}" for a in node.names}
+
+
+def test_pipeline_does_not_import_the_scheduler():
+    """The decide layer's arrows point one way: core/scheduler.py imports
+    core/pipeline.py, and pipeline.py imports nothing of the scheduler,
+    at its top or inside a function; no function of the scheduler
+    imports the pipeline lazily."""
+    def tree(name):
+        return ast.parse((PORT / "core" / f"{name}.py").read_text())
+
+    pipe = set().union(*(_imported(n) for n in ast.walk(tree("pipeline"))
+                         if isinstance(n, (ast.Import, ast.ImportFrom))))
+    assert pipe and not any(m.split(".")[-1] == "scheduler" for m in pipe)
+    sched = tree("scheduler")
+    top = set().union(*(_imported(n) for n in sched.body
+                        if isinstance(n, (ast.Import, ast.ImportFrom))))
+    assert "repro_torch.core.pipeline" in top
+    lazy = [n for f in ast.walk(sched) if isinstance(f, ast.FunctionDef)
+            for n in ast.walk(f) if isinstance(n, (ast.Import, ast.ImportFrom))]
+    assert not any("pipeline" in m for n in lazy for m in _imported(n))

@@ -652,6 +652,32 @@ def test_decide_rescue_lets_a_surfaced_kernel_fault_through():
     assert sage.decide(_graph(), 16, "spmm").choice == "baseline"
 
 
+@pytest.mark.parametrize("entry", ["decide", "decide_attention"])
+def test_attention_decide_fault_serves_the_uncached_pipeline_baseline(entry):
+    """A fault in the decision machinery of a joint attention decide
+    yields the uncached 3-stage baseline, counted as a fault, through
+    either entry point; its runner matches the oracle."""
+    sage = _sage()
+    sage._decide_impl = lambda *a, **k: (_ for _ in ()).throw(KeyError("x"))
+    g = _graph()
+    faults = obs.REGISTRY.total("autosage_faults_total", site="decide")
+    tier = obs.REGISTRY.get("autosage_decides_total", op="attention", tier="fault",
+                            scheduler="exact") or 0.0
+    d = (sage.decide(g, 16, "attention") if entry == "decide"
+         else sage.decide_attention(g, 16))
+    assert (d.op, d.choice, d.from_cache, d.stage_ms) == ("attention", "baseline", False, {})
+    assert d.variant.full_name() == "pipe[sddmm=gather_dot,spmm=gather_segsum]"
+    assert not sage.cache.keys_for_op("attention")
+    assert obs.REGISTRY.total("autosage_faults_total", site="decide") == faults + 1
+    assert obs.REGISTRY.get("autosage_decides_total", op="attention", tier="fault",
+                            scheduler="exact") == tier + 1
+    rng = np.random.default_rng(1)
+    q, k, v = (_t(rng.standard_normal((g.n_rows, 16)).astype(np.float32)) for _ in range(3))
+    out = sage.build_runner(g, d)(q, k, v)
+    oracle = ref.csr_attention_ref(_t(g.rowptr), _t(g.colind), q, k, v)
+    np.testing.assert_allclose(out.numpy(), oracle.numpy(), rtol=1e-5, atol=1e-5)
+
+
 # ------------------------------------------ against the JAX package
 PARITY_SPECS = ("run::raise:", "run:row_ell:raise:2", "prepare::oom:", "run:row_ell:oom:1")
 

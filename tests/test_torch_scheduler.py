@@ -5,6 +5,7 @@ cache files shared with the JAX package, estimates keyed off the
 PORTED_FROM table, and the device rule."""
 import dataclasses
 import json
+import zlib
 
 import numpy as np
 import pytest
@@ -29,6 +30,7 @@ from repro_torch.core import (
     parse_key,
 )
 from repro_torch.core import estimate as est
+from repro_torch.core import probe as probe_mod
 from repro_torch.core import registry
 from repro_torch.sparse import erdos_renyi, hub_skew
 
@@ -353,6 +355,73 @@ def test_attention_cache_entries_load_both_ways(tmp_path, probe_kernels):
     assert d_r.stage_ms == {"sddmm": 1.5}
 
 
+def _named_timer(fn, device, iters=1, cap_ms=0.0, name="?"):
+    """A probe timer that reads a fixed cost off the candidate's name."""
+    fn()
+    ms = 1.0 + (zlib.crc32(name.encode()) % 1000) / 100.0
+    return probe_mod.ProbeResult(name, ms, [ms], 1, False)
+
+
+@pytest.mark.parametrize("stage_breakdown", [False, True], ids=["plain", "stages"])
+def test_attention_is_one_op_of_decide(tmp_path, probe_kernels, monkeypatch,
+                                       stage_breakdown):
+    """`decide(csr, d, "attention")` and `decide_attention(csr, d)` are one
+    procedure: the same choice, the same cache entry (with "op":
+    "attention") and the same record in attention_decisions.jsonl, none in
+    the decide stream. The entry, stage breakdown included, reads in the
+    JAX package's cache."""
+    monkeypatch.setattr(probe_mod, "time_callable", _named_timer)
+    csr = _attn_graph("hub_skew")
+    seen = []
+    for how in ("decide", "decide_attention"):
+        tele = tmp_path / how
+        monkeypatch.setenv("AUTOSAGE_TELEMETRY_DIR", str(tele))
+        path = str(tmp_path / f"{how}.json")
+        sage = _sage(path)
+        d = (sage.decide(csr, 16, "attention", stage_breakdown=stage_breakdown)
+             if how == "decide" else sage.decide_attention(csr, 16,
+                                                           stage_breakdown=stage_breakdown))
+        sage.cache.flush()
+        key = ScheduleCache(path=path).keys_for_op("attention")[0]
+        entry = ScheduleCache(path=path).get(key)
+        entry["stats"].pop("probed_at")
+        jx = JxCache(path=path).get(key)
+        assert jx["op"] == entry["op"] == "attention" and jx["choice"] == d.choice
+        assert bool(entry.get("stage_ms")) == stage_breakdown
+        assert jx.get("stage_ms") == entry.get("stage_ms") == (d.stage_ms or None)
+        records = [json.loads(line) for line in
+                   (tele / "attention_decisions.jsonl").read_text().splitlines()]
+        for r in records:
+            del r["t_mono"], r["probe_overhead_ms"]
+        assert not (tele / "decide_events.jsonl").exists()
+        seen.append((d.choice, d.op, key, entry, records))
+    assert seen[0] == seen[1]
+
+
+@pytest.mark.parametrize("kernels", [True, False], ids=["kernels", "library"])
+@pytest.mark.parametrize("profile", ["cpu", "h100"])
+@pytest.mark.parametrize("op", ["spmm", "spmm_dyn", "sddmm", "attention"])
+def test_pool_is_one_enumeration(op, profile, kernels, monkeypatch):
+    """`registry.pool` enumerates once and gives the candidates
+    `registry.candidates` lists and the baseline `registry.baseline`
+    returns, for every op family on both profiles."""
+    if kernels:
+        monkeypatch.setenv("AUTOSAGE_PROBE_PALLAS", "1")
+    else:
+        monkeypatch.delenv("AUTOSAGE_PROBE_PALLAS", raising=False)
+    hw = getattr(HardwareSpec, profile)()
+    feat = InputFeatures.from_csr(_attn_graph("hub_skew"), 64, op)
+    cands, base, by_name = registry.pool(feat, hw, CPU)
+    names = [v.full_name() for v in cands]
+    assert names == [v.full_name() for v in registry.candidates(feat, hw, CPU)]
+    assert base.full_name() == registry.baseline(feat, hw, CPU).full_name()
+    assert base.is_baseline and by_name["baseline"] is base and base in cands
+    assert set(by_name) == set(names) | {"baseline"}
+    assert all(by_name[n].full_name() == n for n in names)
+    if kernels:
+        assert any("_cuda" in n for n in names)
+
+
 def test_span_totals_split_a_decide(tmp_path, probe_kernels, monkeypatch):
     """With AUTOSAGE_OBS set, the flight recorder's span totals split an
     attention decide into its stages; without it nothing is recorded."""
@@ -665,3 +734,12 @@ def test_an_extrapolation_below_the_subgraphs_own_reading_is_measured_again(monk
     assert calls["stalled", 512] == calls["stalled", 1024] == 2
     assert out.probe_ms["flat"] == pytest.approx(0.01 / 512 * 4096)
     assert calls["flat", 512] == 2 and calls["base", 512] == 1
+
+
+def test_probe_on_the_cpu_reads_the_host_clock_and_spins_no_device(monkeypatch):
+    def no_spin(cycles):
+        raise AssertionError("the CPU probe spun a CUDA device")
+
+    monkeypatch.setattr(torch.cuda, "_sleep", no_spin)
+    res = probe_mod.time_callable(lambda: torch.ones(8).sum(), torch.device("cpu"), iters=3)
+    assert res.iters_done == 3 and res.median_ms >= 0.0
