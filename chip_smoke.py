@@ -402,6 +402,9 @@ REPLACES = {
     "sddmm_ragged_ell": "src/repro/kernels/sddmm_pallas.py:109",
     "sddmm_merge_path": "src/repro/kernels/sddmm_pallas.py:199",
     "row_softmax_block_ell": "src/repro/kernels/softmax_pallas.py:31",
+    # the grouped kernels do the work of one launch of these per query head
+    "fused_csr_attention_gqa": "src/repro/kernels/attention_pallas.py:60",
+    "fused_ragged_attention_gqa": "src/repro/kernels/attention_pallas.py:141",
 }
 # src/repro_torch/csrc/<name>.cu
 KERNEL_SOURCES = ("spmm", "attention", "sddmm", "softmax")
@@ -417,6 +420,15 @@ ATTN_FAMILY_KERNEL = {
     "fused_attention_cuda": "fused_csr_attention",
     "ragged_attention_cuda": "fused_ragged_attention",
 }
+# phase 5b: a window layer of Mellum2-12B-A2.5B as bench/configs/mellum2-12b.json
+# runs it, the causal band of one packed sequence of 8,192 tokens at
+# window 1,024, 32 query heads of 128 over 4 KV heads
+BAND_SEQ, BAND_WINDOW, BAND_H, BAND_HKV, BAND_D = 8192, 1024, 32, 4, 128
+GQA_FAMILY_KERNEL = {
+    "fused_attention_cuda": "fused_csr_attention_gqa",
+    "ragged_attention_cuda": "fused_ragged_attention_gqa",
+}
+GQA_ERR = 2.29e-5  # the attention kernels' recorded error, of max |ref|
 # the dense-W SDDMM leg of phase 9: OGBN-Products' average degree at a
 # node count whose dense-W table its memory gate admits (48,980 nodes)
 PRODUCTS_SCALE = 0.02
@@ -1185,8 +1197,162 @@ def attention_kernel_phase(graph, lay, device, reps: int) -> dict:
         log(f"  {name} D={D_ATTN}: {json.dumps(rec)}")
     attn_step_fit(graph, records, device)
     chunk_vs_unsplit(graph, lay, q, k, v, device, reps)
+    grouped_one_head(graph, lay, q, k, v, device, reps)
     _empty_cache(device)
     return records
+
+
+def grouped_one_head(graph, lay, q, k, v, device, reps: int) -> None:
+    """The grouped kernel at G = H = Hkv = 1 (q as (n, 1, D)) on both
+    layouts, held against the per-head kernel and timed beside it: why a
+    2-D q keeps the per-head kernel (one warp a block at G = 1)."""
+    from repro_torch.core.probe import time_callable
+    from repro_torch.kernels import attention as ka
+
+    n = graph.n_rows
+    q1, k1, v1 = q[:, None], k[:, None], v[:, None]
+    fns = {
+        "fused_ragged_attention_gqa": lambda: ka.fused_ragged_attention_gqa(
+            *lay["ragged"], q1, k1, v1, n_rows=n),
+        "fused_csr_attention_gqa": lambda: ka.fused_csr_attention_gqa(
+            *lay["dense"], q1, k1, v1, n_rows=n),
+    }
+    got = {name: fn()[:, 0] for name, fn in fns.items()}
+    check_equal("G=1 grouped dense-W vs ragged", *got.values())
+    err = check_close("G=1 grouped vs per-head kernel", got["fused_ragged_attention_gqa"],
+                      ka.fused_ragged_attention(*lay["ragged"], q, k, v, n_rows=n))
+    del got
+    times = {name: time_callable(fn, device, iters=reps).median_ms for name, fn in fns.items()}
+    log(f"grouped kernel at G=1 D={q.shape[1]}: {json.dumps(times)} ms (the per-head kernels: "
+        f"phase 5's records); max |grouped - per-head| {err:.3e}")
+
+
+def band_attention_phase(device, workdir: Path, reps: int):
+    """Phase 5b: the grouped kernels at a window layer of
+    mellum2-12b.train: the causal band of BAND_SEQ rows at BAND_WINDOW,
+    q (8192, 32, 128), k and v (8192, 4, 128). Both layouts against the
+    CSR oracle head by head (within GQA_ERR of max |ref|) and the
+    per-head kernel, dense-W == ragged bit for bit, a second launch
+    bit-equal, each timed beside the 32 per-head launches they replace.
+    Then ``csr_band_attention`` decided by a scheduler, and pinned to each
+    fused family, each run's launches counted. Returns (the kernel
+    records, the launch counts)."""
+    import torch
+
+    from repro_torch.core import AutoSage, InputFeatures, ScheduleCache, registry
+    from repro_torch.core.probe import time_callable
+    from repro_torch.kernels import attention as ka
+    from repro_torch.kernels import ref
+    from repro_torch.models.attention import band_csr, csr_band_attention
+
+    csr = band_csr(BAND_SEQ, BAND_WINDOW, 1)
+    n = csr.n_rows
+    lay = _attn_layouts(csr, device)
+    g = torch.Generator().manual_seed(23)
+    q = torch.randn(n, BAND_H, BAND_D, generator=g).to(device)
+    k = torch.randn(n, BAND_HKV, BAND_D, generator=g).to(device)
+    v = torch.randn(n, BAND_HKV, BAND_D, generator=g).to(device)
+    fns = {
+        "fused_csr_attention_gqa": lambda: ka.fused_csr_attention_gqa(
+            *lay["dense"], q, k, v, n_rows=n),
+        "fused_ragged_attention_gqa": lambda: ka.fused_ragged_attention_gqa(
+            *lay["ragged"], q, k, v, n_rows=n),
+    }
+    outs = {}
+    for name, fn in fns.items():
+        outs[name] = fn()
+        sync(device)
+        check_equal(f"band {name} run twice", outs[name], fn())
+    check_equal("band grouped dense-W vs ragged", *outs.values())
+    out = outs.pop("fused_ragged_attention_gqa")
+    outs.clear()
+
+    per_head = {  # the H launches of the per-head kernel each grouped launch replaces
+        "fused_csr_attention_gqa": lambda: ka.by_head(lambda qh, kh, vh: ka.fused_csr_attention(
+            *lay["dense"], qh, kh, vh, n_rows=n), q, k, v),
+        "fused_ragged_attention_gqa": lambda: ka.by_head(
+            lambda qh, kh, vh: ka.fused_ragged_attention(*lay["ragged"], qh, kh, vh, n_rows=n),
+            q, k, v),
+    }
+    head_err = check_close("band grouped vs per-head kernel", out,
+                           per_head["fused_ragged_attention_gqa"]())
+    rp, ci = (torch.from_numpy(a).to(device) for a in (csr.rowptr, csr.colind))
+
+    def oracle():
+        return ka.by_head(lambda qh, kh, vh: ref.csr_attention_ref(rp, ci, qh, kh, vh), q, k, v)
+
+    want = oracle()
+    err, top = float((out - want).abs().max()), float(want.abs().max())
+    if not err <= GQA_ERR * top:
+        raise AssertionError(f"band grouped vs oracle: max |err| {err:.3e} > {GQA_ERR} * "
+                             f"{top:.3e}")
+    log(f"band {n} rows, window {BAND_WINDOW}, {csr.nnz} entries, H={BAND_H} over "
+        f"Hkv={BAND_HKV}, D={BAND_D}: max |grouped - oracle| {err:.3e} ({err / top:.2e} of "
+        f"max |ref|), max |grouped - per-head kernel| {head_err:.3e}; dense-W == ragged bit "
+        "for bit; second launch bit-equal")
+    del want
+    oracle_ms = time_callable(oracle, device, iters=1).median_ms
+    io_bytes = 2 * n * (BAND_H + BAND_HKV) * BAND_D * 4  # q, out; k, v
+    flops = 4.0 * csr.nnz * BAND_D * BAND_H
+    records = {}
+    for name, fn in fns.items():
+        arrays = lay["dense" if name == "fused_csr_attention_gqa" else "ragged"]
+        byts = sum(a.numel() * a.element_size() for a in arrays) + io_bytes
+        rec = {
+            "name": name, "route": "cuda", "source": "src/repro_torch/csrc/attention.cu",
+            "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
+            "ms": time_callable(fn, device, iters=reps).median_ms,
+            "plain_ms": oracle_ms,
+            "per_head_ms": time_callable(per_head[name], device, iters=reps).median_ms,
+            "bound_ms": max(byts / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3,
+            "bound_by": "bytes" if byts / HBM_BYTES_PER_S >= flops / FP32_FLOPS
+            else "operations",
+            "library_ms": None, "library_pipe_ms": None, "baseline_pipe_ms": None,
+        }
+        records[name] = rec
+        log(f"  {name} band: {json.dumps(rec)}")
+
+    # the model's call: (B, S, heads, D) views, one grouped call a layer
+    q4, k4, v4 = (t.view(1, n, t.shape[1], BAND_D) for t in (q, k, v))
+    want = out.reshape(1, n, BAND_H * BAND_D)
+    totals: dict = {}
+    cache_path = workdir / "band_cache.json"
+    sage = AutoSage(device=device, cache=ScheduleCache(path=str(cache_path)))
+    got, _ = counted("band csr_band_attention decide + forward",
+                     lambda: csr_band_attention(q4, k4, v4, BAND_WINDOW, sage=sage), totals,
+                     device)
+    check_close("band csr_band_attention vs grouped kernel", got, want)
+    (key, entry), = json.loads(cache_path.read_text()).items()
+    log(f"band attention decision: choice={entry['choice']} "
+        f"probe_ms={json.dumps(entry['probe_ms'])}")
+    feat = InputFeatures.from_csr(csr, BAND_D, "attention")
+    pinned_out = {}
+    for family, kernel in GQA_FAMILY_KERNEL.items():
+        names = [c.full_name() for c in registry.candidates(feat, sage.hw, device)
+                 if c.name == family]
+        if len(names) != 1:
+            raise AssertionError(f"{family}: candidates {names}")
+        pinned_path = workdir / f"band_pinned_{family}.json"
+        ScheduleCache(path=str(pinned_path)).put(
+            key, {"choice": names[0], "probe_ms": {}, "estimates_ms": {}})
+        pinned = AutoSage(device=device,
+                          cache=ScheduleCache(path=str(pinned_path), replay_only=True))
+        o, launched = counted(f"{family} pinned csr_band_attention",
+                              lambda: csr_band_attention(q4, k4, v4, BAND_WINDOW, sage=pinned),
+                              totals, device)
+        per_head_name = kernel[:-len("_gqa")]
+        if launched[kernel] != 1 or launched[per_head_name] != 0:
+            raise AssertionError(f"{family}: pinned band call launched {launched}, not one "
+                                 f"{kernel}")
+        pinned_out[family] = o
+        log(f"pinned {family}: {kernel} +1 launch for {BAND_H} heads")
+        del pinned
+    check_equal("band pinned dense-W vs ragged", *pinned_out.values())
+    check_close("band pinned vs grouped kernel", pinned_out["ragged_attention_cuda"], want)
+    log(f"band main-path launches (sum of the counted runs): {json.dumps(totals)}")
+    del sage, lay, q, k, v, out, want, got, pinned_out
+    _empty_cache(device)
+    return records, totals
 
 
 def attn_step_fit(graph, records, device) -> None:
@@ -4404,6 +4570,10 @@ def run(device, scale: float = SCALE, reps: int = 5) -> list:
             "+ upload)")
         records.update(phase("phase 5 (attention kernels)", attention_kernel_phase, dedup,
                              attn_lay, device, reps))
+        band_records, more = phase("phase 5b (grouped attention on the band)",
+                                   band_attention_phase, device, work, reps)
+        records.update(band_records)
+        add(counts, more)
         add(counts, phase("phase 6 (GAT inference)", gat_phase, dedup, device, work))
         phase("phase 7a (SDDMM edge cases)", sddmm_edge_cases, device)
         held = {"attn_lay": attn_lay}

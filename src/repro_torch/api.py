@@ -7,6 +7,7 @@ options keyword-only.
     c = api.spmm(csr, b, sage=sage)            # scheduled + differentiable
     e = api.sddmm(csr, x, y, sage=sage)
     out = api.attention(csr, q, k, v, sage=sage)
+    out = api.attention(csr, q3, k3, v3, sage=sage)   # q3 (n, H, D), k3 (n, Hkv, D)
 
 Routing, per call:
 
@@ -35,6 +36,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import autodiff
+from repro_torch.kernels import attention as ka
 from repro_torch.kernels import ref
 from repro_torch.sparse.csr import CSR
 
@@ -148,9 +150,22 @@ def attention(
     pipeline (still differentiable), since the scheduled candidates bake
     the default. Attention reads the sparsity pattern only: stored values
     are ignored, and a graph with duplicate edges keeps the fused kernels
-    out of the pool (deduplicate it with ``csr.dedup_edges()`` first)."""
+    out of the pool (deduplicate it with ``csr.dedup_edges()`` first).
+
+    Grouped query heads: q (n, H, D) with k and v (n_cols, Hkv, D), H a
+    multiple of Hkv, query head h over KV head h // (H / Hkv), gives (n,
+    H, D). Scheduled, it is one decision at width D (the key of a single
+    head's call) and one call of the chosen variant's grouped runner; the
+    reference path runs head by head."""
+    grouped = q.dim() == 3
+    if grouped:
+        ka.check_grouped(q, k, v)
     if sage is None or scale is not None:
-        return _RefAttention.apply(q, k, v, *_index(csr, q.device), scale)
+        index = _index(csr, q.device)
+        if grouped:
+            return ka.by_head(lambda qh, kh, vh: _RefAttention.apply(qh, kh, vh, *index, scale),
+                              q, k, v)
+        return _RefAttention.apply(q, k, v, *index, scale)
     if differentiable:
         return autodiff.attention(csr, q, k, v, sched=sage)
-    return autodiff._scheduled(sage, csr.structural(), q.shape[1], "attention", q, k, v)
+    return autodiff._scheduled(sage, csr.structural(), q.shape[-1], "attention", q, k, v)

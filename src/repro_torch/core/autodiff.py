@@ -44,6 +44,8 @@ from repro_torch.sparse.csr import CSR
 def _scheduled(sched, csr: CSR, f: int, op: str, *args):
     """decide + (memoized) prepare + run one scheduled op."""
     kind = "bwd" if "_bwd" in op else "fwd"
+    # a grouped attention call's run span carries its query heads
+    heads = {"heads": int(args[0].shape[1])} if args[0].dim() == 3 else {}
     with obs.span(f"{kind}.{op}", op=op):
         try:
             d = sched.decide(csr, int(f), op)
@@ -62,9 +64,9 @@ def _scheduled(sched, csr: CSR, f: int, op: str, *args):
             resilience.record_fault("decide", "", op, exc, device)
             resilience.record_fallback("scheduler", "reference", op, device)
             runner = resilience.reference_runner(csr, op, device)
-            with obs.span("run", device, op=op, choice="reference"):
+            with obs.span("run", device, op=op, choice="reference", **heads):
                 return runner(*args)
-        with obs.span("run", args[-1].device, op=op, choice=d.choice):
+        with obs.span("run", args[-1].device, op=op, choice=d.choice, **heads):
             return runner(*args)
 
 
@@ -169,18 +171,42 @@ def sddmm(csr: CSR, x: torch.Tensor, y: torch.Tensor, *, sched):
 
 
 # ------------------------------------------------------------ attention
+def _attention_bwd(sched, s: CSR, q, k, v, g):
+    """One head's attention backward, each sparse piece scheduled: the
+    logits recompute and the gradient of the probs are pattern-only
+    SDDMMs ("attention_bwd_e", "attention_bwd_p"), the q, k, v gradients
+    runtime-valued SpMMs ("attention_bwd_q/_k/_v") whose values are the
+    probs or the softmax VJP's output; the softmax VJP itself is a segment
+    op. q, k, v and g are 2-D and contiguous; scale is the default
+    1/sqrt(d). The softmax recompute and its VJP are spans of their own
+    (``softmax.recompute``, ``softmax.vjp``) with their device time; the
+    permutation gathers ``probs[perm]`` and ``gl[perm]`` lie outside every
+    span that takes device time. Returns (gq, gk, gv)."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    dev = _on_device(s, g.device)
+    rowptr, colind, perm = dev["rowptr"], dev["colind"], dev["perm"]
+    # recompute the probs (the fused forward never materializes them)
+    e = _scheduled(sched, s, q.shape[1], "attention_bwd_e", q, k)
+    with obs.span("softmax.recompute", g.device, op="attention"):
+        probs = ref.row_softmax_ref(rowptr, colind, e * scale)
+    del e
+    t, _ = s.transpose_with_perm()
+    # grad_V = A^T(probs) @ g
+    gv = _scheduled(sched, t, g.shape[1], "attention_bwd_v", probs[perm], g)
+    # grad w.r.t. probs: per-edge <g_i, V_j>, then the softmax VJP
+    gp = _scheduled(sched, s, g.shape[1], "attention_bwd_p", g, v)
+    with obs.span("softmax.vjp", g.device, op="attention"):
+        gl = ref.row_softmax_bwd_ref(rowptr, colind, probs, gp) * scale
+    del gp, probs
+    gq = _scheduled(sched, s, k.shape[1], "attention_bwd_q", gl, k)
+    gk = _scheduled(sched, t, q.shape[1], "attention_bwd_k", gl[perm], q)
+    return gq, gk, gv
+
+
 class _Attention(torch.autograd.Function):
     """The forward is the joint "attention" decision. There is no fused
     backward kernel, so the backward decomposes into its sparse pieces,
-    each scheduled: the logits recompute and the gradient of the probs
-    are pattern-only SDDMMs ("attention_bwd_e", "attention_bwd_p"), the
-    q, k, v gradients runtime-valued SpMMs ("attention_bwd_q/_k/_v")
-    whose values are the probs or the softmax VJP's output; the softmax
-    VJP itself is a segment op. Scale is the default 1/sqrt(d). The
-    softmax recompute and its VJP are spans of their own
-    (``softmax.recompute``, ``softmax.vjp``) with their device time; the
-    permutation gathers ``probs[perm]`` and ``gl[perm]`` lie outside
-    every span that takes device time."""
+    each scheduled (`_attention_bwd`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, sched, s):
@@ -191,30 +217,50 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        g = g.contiguous()
-        sched, s = ctx.sched, ctx.s
-        scale = 1.0 / (q.shape[-1] ** 0.5)
-        dev = _on_device(s, g.device)
-        rowptr, colind, perm = dev["rowptr"], dev["colind"], dev["perm"]
-        # recompute the probs (the fused forward never materializes them)
-        e = _scheduled(sched, s, q.shape[1], "attention_bwd_e", q, k)
-        with obs.span("softmax.recompute", g.device, op="attention"):
-            probs = ref.row_softmax_ref(rowptr, colind, e * scale)
-        del e
-        t, _ = s.transpose_with_perm()
-        # grad_V = A^T(probs) @ g
-        gv = _scheduled(sched, t, g.shape[1], "attention_bwd_v", probs[perm], g)
-        # grad w.r.t. probs: per-edge <g_i, V_j>, then the softmax VJP
-        gp = _scheduled(sched, s, g.shape[1], "attention_bwd_p", g, v)
-        with obs.span("softmax.vjp", g.device, op="attention"):
-            gl = ref.row_softmax_bwd_ref(rowptr, colind, probs, gp) * scale
-        del gp, probs
-        gq = _scheduled(sched, s, k.shape[1], "attention_bwd_q", gl, k)
-        gk = _scheduled(sched, t, q.shape[1], "attention_bwd_k", gl[perm], q)
+        gq, gk, gv = _attention_bwd(ctx.sched, ctx.s, q, k, v, g.contiguous())
         return gq.to(q.dtype), gk.to(k.dtype), gv.to(v.dtype), None, None
+
+
+class _GroupedAttention(torch.autograd.Function):
+    """Every query head at once: q (n, H, D), k and v (n_kv, Hkv, D),
+    query head h over KV head h // (H / Hkv). The forward is one joint
+    "attention" decision at width D, with the key of a single head's
+    call, and one call of the chosen variant's grouped runner
+    (core/registry.py `attention_runner`). The backward runs
+    `_attention_bwd` head by head, in head order, and sums the k and v
+    gradients of each KV head's query heads in that order."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sched, s):
+        ctx.sched, ctx.s = sched, s
+        ctx.save_for_backward(q, k, v)
+        return _scheduled(sched, s, q.shape[-1], "attention", q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        h, hkv = q.shape[1], k.shape[1]
+        grp = h // hkv
+        gq = torch.empty_like(q)
+        gk, gv = torch.empty_like(k), torch.empty_like(v)
+        for j in range(hkv):
+            kj, vj = k[:, j].contiguous(), v[:, j].contiguous()
+            for i in range(j * grp, (j + 1) * grp):
+                gqi, gki, gvi = _attention_bwd(ctx.sched, ctx.s, q[:, i].contiguous(), kj, vj,
+                                               g[:, i].contiguous())
+                gq[:, i] = gqi
+                if i == j * grp:
+                    gk[:, j], gv[:, j] = gki, gvi
+                else:
+                    gk[:, j] += gki
+                    gv[:, j] += gvi
+        return gq, gk, gv, None, None
 
 
 def attention(csr: CSR, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, sched):
     """CSR attention (SDDMM -> row softmax -> SpMM), its forward decided
-    at pipeline granularity as the "attention" op, differentiable."""
+    at pipeline granularity as the "attention" op, differentiable. A 3-D
+    q (n, H, D) with k and v (n_kv, Hkv, D) is one grouped call."""
+    if q.dim() == 3:
+        return _GroupedAttention.apply(q, k, v, sched, csr.structural())
     return _Attention.apply(q, k, v, sched, csr.structural())

@@ -591,9 +591,18 @@ FEATURES_TOTAL = "autosage_features_total"
 #                                              run forward, remat
 #                                              recomputes included, and
 #                                              backward
+#   autosage_attention_heads_total{path=grouped|looped}
+#                                              query heads of grouped
+#                                              attention calls (q (n, H,
+#                                              D)): run by a variant's
+#                                              grouped kernel, or head by
+#                                              head by a variant without
+#                                              one (core/registry.py
+#                                              attention_runner)
 BAND_CSR_TOTAL = "autosage_band_csr_total"
 MOE_ROWS_TOTAL = "autosage_moe_rows_total"
 MOE_GROUPED_TOTAL = "autosage_moe_grouped_total"
+ATTENTION_HEADS_TOTAL = "autosage_attention_heads_total"
 
 
 # -------------------------------------------------------------- serving

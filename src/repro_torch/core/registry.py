@@ -628,6 +628,26 @@ def _cuda_sddmm_variants(feat: InputFeatures) -> List[Variant]:
 # The joint "attention" decide (core/pipeline.py) probes these end to end; a
 # per-op decide can never justify a fused kernel because its benefit (no
 # logits/probs round-trip through device memory) lies *between* ops.
+def attention_runner(run: Callable, grouped: Optional[Callable] = None) -> Callable:
+    """An attention variant's runner. A 2-D q (n, D) goes to ``run`` as
+    it is. A grouped call, q (n, H, D) with k and v (n_kv, Hkv, D), goes
+    to ``grouped`` (one launch for every head) where the variant has one
+    and D fits it, else to ``run`` head by head; either way its query
+    heads count in ``autosage_attention_heads_total{path}``."""
+
+    def runner(q, k, v):
+        if q.dim() == 2:
+            return run(q, k, v)
+        if grouped is not None and q.shape[-1] <= ka.GQA_MAX_D:
+            out, path = grouped(q, k, v), "grouped"
+        else:
+            out, path = ka.by_head(run, q, k, v), "looped"
+        obs.REGISTRY.inc(obs.ATTENTION_HEADS_TOTAL, q.shape[1], path=path)
+        return out
+
+    return runner
+
+
 def _structural(csr: CSR) -> CSR:
     """Attention uses the sparsity pattern only. Drop stored values so the
     ELL/block-ELL masks (built from val != 0) keep explicitly zero-weighted
@@ -655,8 +675,10 @@ def _prepare_attn_fused(csr: CSR, rb: int, bc: int) -> Dict:
 def _build_attn_fused(aux: Dict, device: torch.device) -> Callable:
     dev = _dev(aux, device)
     n = int(aux["n_rows"])
-    return lambda q, k, v: ka.fused_csr_attention(
-        dev["colblk"], dev["mask"], q, k, v, n_rows=n
+    return attention_runner(
+        lambda q, k, v: ka.fused_csr_attention(dev["colblk"], dev["mask"], q, k, v, n_rows=n),
+        lambda q, k, v: ka.fused_csr_attention_gqa(dev["colblk"], dev["mask"], q, k, v,
+                                                   n_rows=n),
     )
 
 
@@ -674,8 +696,10 @@ def _prepare_attn_ragged(csr: CSR, rb: int, bc: int) -> Dict:
 def _build_attn_ragged(aux: Dict, device: torch.device) -> Callable:
     dev = _dev(aux, device)
     n = int(aux["n_rows"])
-    return lambda q, k, v: ka.fused_ragged_attention(
-        dev["blkptr"], dev["slot_colblk"], dev["mask"], q, k, v, n_rows=n
+    layout = (dev["blkptr"], dev["slot_colblk"], dev["mask"])
+    return attention_runner(
+        lambda q, k, v: ka.fused_ragged_attention(*layout, q, k, v, n_rows=n),
+        lambda q, k, v: ka.fused_ragged_attention_gqa(*layout, q, k, v, n_rows=n),
     )
 
 
@@ -693,7 +717,7 @@ def _attention_variants(feat: InputFeatures, include_kernels: bool) -> List[Vari
             name="pipe",
             op="attention",
             prepare=prep,
-            build=lambda aux, device, fn=fn: (
+            build=lambda aux, device, fn=fn: attention_runner(
                 lambda q, k, v, a=_dev(aux, device): fn(a, q, k, v)
             ),
             applicable=(

@@ -579,7 +579,7 @@ def _infer_f(op: str, args: tuple) -> int:
 
     if features_mod.op_kind(op) == "spmm":
         return int(args[-1].shape[1])
-    return int(args[0].shape[1])
+    return int(args[0].shape[-1])
 
 
 def reference_runner(csr, op: str, device: torch.device) -> Callable:
@@ -606,7 +606,10 @@ def reference_runner(csr, op: str, device: torch.device) -> Callable:
     if kind == "sddmm":
         return lambda x, y: ref.sddmm_ref(rowptr, colind, x, y)
     if kind == "attention":
-        return lambda q, k, v: ref.csr_attention_ref(rowptr, colind, q, k, v)
+        from repro_torch.core import registry
+
+        return registry.attention_runner(
+            lambda q, k, v: ref.csr_attention_ref(rowptr, colind, q, k, v))
     raise KeyError(op)
 
 

@@ -23,6 +23,13 @@ chunks has its chunks' partial states folded in chunk order by a second
 kernel over a workspace the wrapper allocates (``attention_chunks_plain``
 is that computation in plain torch).
 
+``fused_ragged_attention_gqa`` and ``fused_csr_attention_gqa`` are the
+grouped forms (grouped-query attention, no Pallas counterpart): q (n, H,
+D) and k, v (n_kv, Hkv, D), query head h over KV head h // (H / Hkv), in
+one launch of csrc/attention.cu's grouped kernel that loads each live
+slot's k and v rows once for every head of a KV group; their plain
+versions run the single-head ones head by head (``by_head``).
+
 Each wrapper takes its plain version only for tensors on the CPU; for
 CUDA tensors it launches its kernel on the current stream or raises.
 ``LAUNCHES`` counts the launches of each kernel (one per wrapper call).
@@ -44,6 +51,8 @@ from repro_torch.kernels.ref import CHUNK_ELEMS, chunk_ranges
 LAUNCHES: Dict[str, int] = {
     "fused_csr_attention": 0,
     "fused_ragged_attention": 0,
+    "fused_csr_attention_gqa": 0,
+    "fused_ragged_attention_gqa": 0,
 }
 
 RB = BC = 8
@@ -55,6 +64,9 @@ MAX_D = SMEM_LIMIT // (2 * RB * 4)
 # (csrc/attention.cu's header: why chunks, and why this length)
 CHUNK_SLOTS = 256
 STATE_FLOATS = 4  # per row and chunk: m, l, a live flag, padding
+# the grouped kernel keeps a lane's 4 rows x D / 16 accumulator columns in
+# registers: at most 16 per row and 64 in all, so D <= 256
+GQA_MAX_D = 256
 
 
 def reset_launches() -> None:
@@ -67,11 +79,38 @@ _lib = functools.partial(build.load, "attention", {
     "autosage_attention": [
         P, P, P, LL, P, P, P, P, P, P, P, P, LL, LL, I, LL, LL, I, LL, F, P,
     ],
+    "autosage_attention_gqa": [
+        P, P, P, LL, P, P, P, P, P, P, P, P, LL, LL, I, LL, LL, I, LL, F, I, I,
+        LL, LL, LL, LL, LL, LL, P,
+    ],
 })
 
 
 def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
-    return 1.0 / (q.shape[1] ** 0.5) if scale is None else float(scale)
+    return 1.0 / (q.shape[-1] ** 0.5) if scale is None else float(scale)
+
+
+def by_head(run, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Grouped attention head by head: q (n, H, D), k and v (n_kv, Hkv, D),
+    query head h over KV head h // (H / Hkv), each head through the 2-D
+    ``run(q_h, k_j, v_j)`` on contiguous copies; returns (n, H, D)."""
+    h, hkv = q.shape[1], k.shape[1]
+    g = h // hkv
+    ks = [k[:, j].contiguous() for j in range(hkv)]
+    vs = [v[:, j].contiguous() for j in range(hkv)]
+    return torch.stack([run(q[:, i].contiguous(), ks[i // g], vs[i // g]) for i in range(h)],
+                       dim=1)
+
+
+def check_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Shapes of a grouped call: q (n, H, D), k and v (n_kv, Hkv, D), H a
+    multiple of Hkv."""
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
+        raise ValueError(f"grouped attention takes q (n, H, D) and k, v (n_kv, Hkv, D); got q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if k.shape[2] != q.shape[2] or k.shape[1] == 0 or q.shape[1] % k.shape[1]:
+        raise ValueError(f"grouped attention: {q.shape[1]} query heads over {k.shape[1]} KV "
+                         f"heads, widths {q.shape[2]} and {k.shape[2]}")
 
 
 # -------------------------------------------------------------- plain
@@ -376,3 +415,115 @@ def fused_csr_attention(
         raise ValueError(f"{name}: mask {tuple(mask.shape)} does not match colblk "
                          f"{tuple(colblk.shape)}")
     return _launch(name, None, w, colblk, mask, q, k, v, nrb, n_rows, scale, cs)
+
+
+# ------------------------------------------------------ grouped (GQA)
+def _launch_gqa(name, blkptr, width, colblk, mask, q, k, v, nrb, n_rows, scale, cs):
+    """Checks, chunk tables, workspace and launch of the grouped kernel:
+    q (n, H, D), k and v (n_kv, Hkv, D), each with its last dimension
+    contiguous (the row and head strides go to the kernel)."""
+    check_grouped(q, k, v)
+    h, hkv, d = q.shape[1], k.shape[1], q.shape[2]
+    for arg, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != torch.float32 or (t.shape[2] > 1
+                                                                and t.stride(2) != 1):
+            raise ValueError(f"{name}: {arg} must be fp32 on {q.device} with its last "
+                             "dimension contiguous")
+    if d > GQA_MAX_D:
+        raise ValueError(f"{name}: D={d} exceeds the grouped kernel's {GQA_MAX_D}")
+    cs = chunk_slots(d) if cs is None else cs
+    if not 1 <= cs < 2 ** 31:
+        raise ValueError(f"{name}: cs={cs} slots per chunk outside [1, 2**31)")
+    n_rows = nrb * RB if n_rows is None else n_rows
+    if not 0 <= n_rows <= nrb * RB:
+        raise ValueError(f"{name}: n_rows={n_rows} outside [0, {nrb * RB}]")
+    if tuple(mask.shape[-2:]) != (RB, BC):
+        raise ValueError(f"{name}: mask tiles must be {RB}x{BC}, got {tuple(mask.shape)}")
+    out = torch.empty((n_rows, h, d), dtype=torch.float32, device=q.device)
+    if nrb == 0 or d == 0 or n_rows == 0 or h == 0:
+        return out
+    chunk_ptr = ws_ptr = None
+    if blkptr is None:
+        n_ch = _dense_chunks(width, cs)
+        n_blocks = nrb * n_ch
+        n_ws = n_blocks if n_ch > 1 else 0
+    else:
+        n_slots = mask.shape[0]
+        chunk_ptr, ws_ptr = ragged_chunk_table(blkptr, cs)
+        n_blocks = nrb + n_slots // cs
+        n_ws = 2 * (n_slots // cs) if n_slots > cs else 0
+    ws_state = ws_acc = None
+    if n_ws:
+        ws_state = torch.empty((n_ws, h, RB, STATE_FLOATS), dtype=torch.float32,
+                               device=q.device)
+        ws_acc = torch.empty((n_ws, h, RB, d), dtype=torch.float32, device=q.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    rc = _lib().autosage_attention_gqa(
+        ptr(blkptr), ptr(chunk_ptr), ptr(ws_ptr), width, colblk.data_ptr(),
+        mask.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        ptr(ws_state), ptr(ws_acc), nrb, n_blocks, cs, q.shape[0], k.shape[0], d, n_rows,
+        _scale(q, scale), h, hkv, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), build.stream_of(q.device),
+    )
+    build.raise_on(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def fused_ragged_attention_gqa(
+    blkptr: torch.Tensor,  # int32 (nrb + 1,)
+    slot_colblk: torch.Tensor,  # int32 (n_slots,)
+    mask: torch.Tensor,  # f32 (n_slots, 8, 8) structural 0/1
+    q: torch.Tensor,  # f32 (n_rows, H, D)
+    k: torch.Tensor,  # f32 (n_cols, Hkv, D)
+    v: torch.Tensor,  # f32 (n_cols, Hkv, D)
+    n_rows: Optional[int] = None,
+    scale: Optional[float] = None,
+    cs: Optional[int] = None,
+) -> torch.Tensor:
+    """`fused_ragged_attention` for every query head at once: query head h
+    reads KV head h // (H / Hkv); returns (n_rows, H, D). One launch: a
+    CUDA block per (chunk of ``cs`` slots of a row block, KV head, group
+    of up to 8 of its query heads) loads each live slot's k and v rows
+    once for all of them. D <= GQA_MAX_D. The plain version (CPU tensors)
+    runs `fused_ragged_attention_plain` head by head."""
+    if q.device.type == "cpu":
+        check_grouped(q, k, v)
+        return by_head(lambda qh, kh, vh: fused_ragged_attention_plain(
+            blkptr, slot_colblk, mask, qh, kh, vh, n_rows, scale), q, k, v)
+    name = "fused_ragged_attention_gqa"
+    build.check_operands(name, q.device, blkptr=blkptr, slot_colblk=slot_colblk, mask=mask)
+    if mask.shape[0] != slot_colblk.shape[0]:
+        raise ValueError(f"{name}: {mask.shape[0]} mask tiles for "
+                         f"{slot_colblk.shape[0]} slots")
+    return _launch_gqa(name, blkptr, 0, slot_colblk, mask, q, k, v, blkptr.shape[0] - 1,
+                       n_rows, scale, cs)
+
+
+def fused_csr_attention_gqa(
+    colblk: torch.Tensor,  # int32 (nrb, W)
+    mask: torch.Tensor,  # f32 (nrb, W, 8, 8) structural 0/1, padding 0
+    q: torch.Tensor,  # f32 (n_rows, H, D)
+    k: torch.Tensor,  # f32 (n_cols, Hkv, D)
+    v: torch.Tensor,  # f32 (n_cols, Hkv, D)
+    n_rows: Optional[int] = None,
+    scale: Optional[float] = None,
+    cs: Optional[int] = None,
+) -> torch.Tensor:
+    """Dense-W `fused_ragged_attention_gqa`: the same chunks and code, the
+    padded slots skipped, so its output equals the ragged one's at the
+    same ``cs`` bit for bit."""
+    if q.device.type == "cpu":
+        check_grouped(q, k, v)
+        return by_head(lambda qh, kh, vh: fused_csr_attention_plain(
+            colblk, mask, qh, kh, vh, n_rows, scale), q, k, v)
+    name = "fused_csr_attention_gqa"
+    build.check_operands(name, q.device, colblk=colblk, mask=mask)
+    nrb, w = colblk.shape
+    if tuple(mask.shape[:2]) != (nrb, w):
+        raise ValueError(f"{name}: mask {tuple(mask.shape)} does not match colblk "
+                         f"{tuple(colblk.shape)}")
+    return _launch_gqa(name, None, w, colblk, mask, q, k, v, nrb, n_rows, scale, cs)

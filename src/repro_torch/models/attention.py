@@ -12,9 +12,9 @@ NEG_INF = -1e30.
 A config with a per-layer plan (`configs.layers.layer_plan`, Mellum2)
 trains through `layer_attention`: each layer's own rope, and on a
 sliding-window layer `csr_band_attention`, the paper's CSR attention over
-the causal band (`band_csr`), one `api.attention` call per query head.
-Given a scheduler (``sage``) those calls and their backward run the
-scheduled hand kernels; without one, the plain reference oracles. The
+the causal band (`band_csr`), one grouped `api.attention` call for all
+query heads. Given a scheduler (``sage``) that call and its backward run
+the scheduled hand kernels; without one, the plain reference oracles. The
 full layers run exact blockwise-causal attention in plain torch.
 
 KV cache layout: {"k": (B, L, Hkv, Dh), "v": (B, L, Hkv, Dh), "pos": int}.
@@ -231,19 +231,17 @@ def csr_band_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window
                        sage=None) -> torch.Tensor:
     """Sliding-window causal attention as CSR attention over `band_csr`:
     q (B, S, H, Dh), k and v (B, S, Hkv, Dh) -> (B, S, H * Dh), one
-    `api.attention` call per query head h, over KV head h // (H / Hkv),
-    at the default scale 1/sqrt(Dh). ``sage`` schedules each call and
-    its backward; without it the reference oracles run."""
+    grouped `api.attention` call for every query head, head h over KV
+    head h // (H / Hkv), at the default scale 1/sqrt(Dh). ``sage``
+    schedules the call and its backward; without it the reference
+    oracles run. The (B * S, heads, Dh) views go to the kernel with their
+    strides, uncopied."""
     b, s, h, dh = q.shape
     hkv = k.shape[2]
     csr = band_csr(s, window, b)
-    qf = q.reshape(b * s, h, dh)
-    ks = [k.reshape(b * s, hkv, dh)[:, j].contiguous() for j in range(hkv)]
-    vs = [v.reshape(b * s, hkv, dh)[:, j].contiguous() for j in range(hkv)]
-    g = h // hkv
-    outs = [api.attention(csr, qf[:, i].contiguous(), ks[i // g], vs[i // g], sage=sage)
-            for i in range(h)]
-    return torch.stack(outs, dim=1).reshape(b, s, h * dh)
+    out = api.attention(csr, q.reshape(b * s, h, dh), k.reshape(b * s, hkv, dh),
+                        v.reshape(b * s, hkv, dh), sage=sage)
+    return out.reshape(b, s, h * dh)
 
 
 def layer_attention(params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,

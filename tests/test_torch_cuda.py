@@ -729,3 +729,187 @@ def test_probe_times_the_device_not_the_hosts_launching(cuda):
         return x.add_(1.0)
 
     assert probe_mod.time_callable(call, cuda, iters=5).median_ms < 0.25
+
+
+# ------------------------------------------- grouped (GQA) attention
+def _band(n=512, window=64):
+    from repro_torch.models.attention import band_csr
+
+    return band_csr(n, window, 1)
+
+
+def _gqa_graph(kind):
+    return _band() if kind == "band" else _attn_graph(kind)
+
+
+def _gqa_inputs(csr, h, hkv, d, device, seed=0, pad=0):
+    """q (n_rows, h, d) and k, v (n_cols, hkv, d), each a view of a buffer
+    whose heads are ``d + pad`` floats apart (pad 0: contiguous)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def make(n, heads):
+        return torch.randn(n, heads, d + pad, generator=g).to(device)[:, :, :d]
+
+    return make(csr.n_rows, h), make(csr.n_cols, hkv), make(csr.n_cols, hkv)
+
+
+def _check_gqa(csr, q, k, v, device, cs=None):
+    """The grouped kernel on both layouts (one launch each, counted)
+    against the per-head kernel on every head and the CSR oracle (within
+    2.29e-5 of max |ref|, the kernels' recorded error); dense-W == ragged
+    bit for bit, a second launch bit-equal, rows without edges 0. Returns
+    the ragged output."""
+    from repro_torch.kernels import ref
+
+    rargs, dargs = _attn_args(csr, device)
+    before = dict(ka.LAUNCHES)
+    ragged = ka.fused_ragged_attention_gqa(*rargs, q, k, v, n_rows=csr.n_rows, cs=cs)
+    dense = ka.fused_csr_attention_gqa(*dargs, q, k, v, n_rows=csr.n_rows, cs=cs)
+    torch.cuda.synchronize()
+    assert ka.LAUNCHES["fused_ragged_attention_gqa"] == before["fused_ragged_attention_gqa"] + 1
+    assert ka.LAUNCHES["fused_csr_attention_gqa"] == before["fused_csr_attention_gqa"] + 1
+    assert ragged.shape == (csr.n_rows, q.shape[1], q.shape[2])
+    assert torch.equal(dense, ragged)
+    assert torch.equal(ragged, ka.fused_ragged_attention_gqa(*rargs, q, k, v,
+                                                             n_rows=csr.n_rows, cs=cs))
+    per_head = ka.by_head(lambda qh, kh, vh: ka.fused_ragged_attention(
+        *rargs, qh, kh, vh, n_rows=csr.n_rows, cs=cs), q, k, v)
+    _close(ragged, per_head)
+    rp, ci = (torch.from_numpy(a).to(device) for a in (csr.rowptr, csr.colind))
+    want = ka.by_head(lambda qh, kh, vh: ref.csr_attention_ref(rp, ci, qh, kh, vh), q, k, v)
+    assert (ragged - want).abs().max() <= 2.29e-5 * want.abs().max()
+    empty = torch.from_numpy(csr.degrees == 0).to(device)
+    assert not ragged[empty].any()
+    return ragged
+
+
+@pytest.mark.parametrize("kind", ["band", "hub_skew", "empty_rows", "cliques"])
+@pytest.mark.parametrize("d", [64, 100, 128, 256])
+@pytest.mark.parametrize("g,hkv", [(1, 1), (4, 1), (8, 1), (1, 4), (4, 4), (8, 4)])
+def test_grouped_attention_kernel(cuda, kind, d, g, hkv):
+    """The grouped kernel at every width it takes, G = H / Hkv in {1, 4,
+    8} over 1 or 4 KV heads, on the causal band, a skewed graph, empty
+    row blocks and rows past the ends of q, k and v (53 rows, 70 columns),
+    and fully live tiles."""
+    csr = _gqa_graph(kind)
+    q, k, v = _gqa_inputs(csr, g * hkv, hkv, d, cuda, seed=d + g)
+    _check_gqa(csr, q, k, v, cuda)
+
+
+@pytest.mark.parametrize("chunk", [32, None, 1 << 30])
+@pytest.mark.parametrize("d", [64, 128])
+def test_grouped_attention_split_row_blocks(cuda, chunk, d):
+    """One hub over 512 slots, split into chunks of 32 slots (16 chunks
+    folded by the grouped combine), in the default chunks (2) and unsplit."""
+    csr = _attn_graph("single_hub")
+    cs = ka.chunk_slots(d) if chunk is None else chunk
+    assert _most_chunks(csr, cs) == -(-512 // cs)
+    q, k, v = _gqa_inputs(csr, 8, 2, d, cuda, seed=7)
+    _check_gqa(csr, q, k, v, cuda, cs=chunk)
+
+
+@pytest.mark.parametrize("pad", [4, 1])
+def test_grouped_attention_takes_strided_heads(cuda, pad):
+    """q, k and v as views whose heads lie d + pad floats apart: pad 4
+    keeps the 16-byte pieces (the vector path), pad 1 takes the float path;
+    both equal the contiguous inputs' output bit for bit."""
+    csr = _band()
+    q, k, v = _gqa_inputs(csr, 8, 2, 64, cuda, seed=11, pad=pad)
+    assert not q.is_contiguous()
+    got = _check_gqa(csr, q, k, v, cuda)
+    rargs, _ = _attn_args(csr, cuda)
+    dense_in = ka.fused_ragged_attention_gqa(*rargs, q.contiguous(), k.contiguous(),
+                                             v.contiguous(), n_rows=csr.n_rows)
+    if pad % 4 == 0:
+        assert torch.equal(got, dense_in)
+    else:
+        _close(got, dense_in)
+
+
+def test_grouped_attention_rescales_when_a_later_slot_raises_the_max(cuda):
+    """Logits rising by ~40 along each row's columns (every later batch
+    raises the max), split into chunks of 32 slots and unsplit."""
+    csr = _attn_graph("single_hub")
+    d, h, hkv = 64, 8, 2
+    g = torch.Generator().manual_seed(3)
+    u = torch.ones(d) / d ** 0.5
+    ramp = torch.arange(csr.n_cols, dtype=torch.float32) / csr.n_cols
+    q = 0.1 * torch.randn(csr.n_rows, h, d, generator=g) + u
+    k = 0.1 * torch.randn(csr.n_cols, hkv, d, generator=g) + (
+        40.0 * d ** 0.5) * ramp[:, None, None] * u
+    v = torch.randn(csr.n_cols, hkv, d, generator=g)
+    for cs in (32, 1 << 30):
+        _check_gqa(csr, q.to(cuda), k.to(cuda), v.to(cuda), cuda, cs=cs)
+
+
+def test_grouped_attention_inf_and_nan_in_v_rows_no_edge_reads(cuda):
+    """v holding +inf, -inf and NaN in rows no edge reads (every odd
+    column): the grouped kernel stages no k or v row of a column without a
+    live cell in its row block, so the output stays finite."""
+    csr = _spread(_attn_graph("hub_skew"))
+    q, k, v = _gqa_inputs(csr, 4, 1, 64, cuda, seed=13)
+    v = v.clone()
+    v[1::6], v[3::6], v[5::6] = float("inf"), float("-inf"), float("nan")
+    out = _check_gqa(csr, q, k, v, cuda)
+    assert torch.isfinite(out).all()
+
+
+def test_grouped_attention_non_finite_v_live_for_some_rows_of_a_block(cuda):
+    """v holding +inf, -inf and NaN at band columns that a row block's
+    diagonal tile (and a later block's window-edge tile) leaves live for
+    some of its rows and masked for the others: the grouped kernel stages
+    those rows for the block, and a row that has the cell masked must not
+    read them. Rows that read no such column come out finite, equal to
+    the per-head kernel and the oracle; ragged == dense-W, NaNs included."""
+    from repro_torch.kernels import ref
+
+    csr = _band()  # 512 rows, window 64
+    q, k, v = _gqa_inputs(csr, 8, 2, 64, cuda, seed=19)
+    v = v.clone()
+    bad = (8 * 5 + 3, 8 * 20 + 5, 8 * 40 + 1)
+    for c, val in zip(bad, (float("inf"), float("-inf"), float("nan"))):
+        v[c] = val
+    rargs, dargs = _attn_args(csr, cuda)
+    ragged = ka.fused_ragged_attention_gqa(*rargs, q, k, v, n_rows=csr.n_rows)
+    dense = ka.fused_csr_attention_gqa(*dargs, q, k, v, n_rows=csr.n_rows)
+    torch.testing.assert_close(dense, ragged, rtol=0, atol=0, equal_nan=True)
+    reads = torch.zeros(csr.n_rows, dtype=torch.bool)
+    for c in bad:
+        reads[c:c + 64] = True  # row r reads columns r - 63 .. r
+    clean = ~reads.to(cuda)
+    mixed = [c - 1 for c in bad] + [c + 64 for c in bad]  # a block-mate of a reading row
+    assert not bool(reads[mixed].any())
+    assert torch.isfinite(ragged[clean]).all()
+    per_head = ka.by_head(lambda qh, kh, vh: ka.fused_ragged_attention(
+        *rargs, qh, kh, vh, n_rows=csr.n_rows), q, k, v)
+    _close(ragged[clean], per_head[clean])
+    rp, ci = (torch.from_numpy(a).to(cuda) for a in (csr.rowptr, csr.colind))
+    want = ka.by_head(lambda qh, kh, vh: ref.csr_attention_ref(rp, ci, qh, kh, vh), q, k, v)
+    assert (ragged[clean] - want[clean]).abs().max() <= 2.29e-5 * want[clean].abs().max()
+
+
+def test_grouped_attention_runner_counts_heads_on_the_card(cuda):
+    """Both fused variants' runners take a grouped call in one launch of
+    the grouped kernel (counted as grouped heads), and a 2-D call in one
+    launch of the per-head kernel, as before."""
+    from repro_torch.core import obs, registry
+    from repro_torch.core.features import HardwareSpec, InputFeatures
+
+    csr = _band()
+    feat = InputFeatures.from_csr(csr, 128, "attention")
+    hw = HardwareSpec.current(cuda)
+    vs = {v.name: v for v in registry.candidates(feat, hw, cuda)}
+    q, k, v = _gqa_inputs(csr, 32, 4, 128, cuda, seed=17)
+    for name, key in (("fused_attention_cuda", "fused_csr_attention"),
+                      ("ragged_attention_cuda", "fused_ragged_attention")):
+        var = vs[name]
+        run = var.build(var.prepare(csr), cuda)
+        before = dict(ka.LAUNCHES)
+        grouped0 = obs.REGISTRY.get(obs.ATTENTION_HEADS_TOTAL, path="grouped") or 0
+        out = run(q, k, v)
+        assert ka.LAUNCHES[key + "_gqa"] == before[key + "_gqa"] + 1
+        assert ka.LAUNCHES[key] == before[key]
+        assert obs.REGISTRY.get(obs.ATTENTION_HEADS_TOTAL, path="grouped") == grouped0 + 32
+        one = run(q[:, 5].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous())
+        assert ka.LAUNCHES[key] == before[key] + 1
+        _close(out[:, 5], one)
